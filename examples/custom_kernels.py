@@ -19,12 +19,13 @@ def main() -> int:
     import numpy as np
     import jax.numpy as jnp
 
-    from hipe_tpu.io_.jpeg import decode_file
     from hipe_tpu.models import pipelines as plib
     from hipe_tpu.ops import blur as xblur
     from hipe_tpu.ops import reference as oracle
 
-    img = decode_file("/root/reference/image_320x240.jpg")
+    from hipe_tpu.utils.images import REFERENCE_320, seeded_image
+
+    img = seeded_image(*REFERENCE_320)
 
     # 1. Register a custom kernel: taps exactly as you'd hand them to
     #    PIL's ImageFilter.Kernel (row 0 first), integer scale, offset.

@@ -3,7 +3,7 @@
 Brightness (a static-LUT stage), Contrast (per-image luma mean),
 Color (per-pixel saturation blend), Sharpness (SMOOTH-degenerate blend
 with PIL's border rule), and ImageOps.colorize — each compared against
-PIL itself on the reference asset.
+PIL itself on a seeded 320x240 image.
 
     JAX_PLATFORMS=cpu python examples/enhance.py
 """
@@ -19,12 +19,13 @@ def main() -> int:
     import jax.numpy as jnp
     from PIL import Image, ImageEnhance, ImageOps
 
-    from hipe_tpu.io_.jpeg import decode_file
     from hipe_tpu.models.pipelines import GlobalStatsPipeline
     from hipe_tpu.ops import blur as xblur
     from hipe_tpu.ops import equalize as eq
 
-    img = decode_file("/root/reference/image_320x240.jpg")
+    from hipe_tpu.utils.images import REFERENCE_320, seeded_image
+
+    img = seeded_image(*REFERENCE_320)
     pim = Image.fromarray(img)
 
     # Brightness: a 256-entry LUT stage (PIL's fp32 truncating blend

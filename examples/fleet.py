@@ -17,7 +17,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     import jax
 
-    from hipe_tpu.io_.jpeg import decode_file
     from hipe_tpu.runtime.fleet import FleetEngine, LaneSpec
 
     devs = jax.devices("cpu") or jax.devices()
@@ -26,7 +25,9 @@ def main() -> int:
         LaneSpec(device=devs[i % len(devs)], weight=w, name=f"lane{i}")
         for i, w in enumerate([1.0, 2.0, 2.0, 1.0][:n])
     ]
-    image = decode_file("/root/reference/image_320x240.jpg")
+    from hipe_tpu.utils.images import REFERENCE_320, seeded_image
+
+    image = seeded_image(*REFERENCE_320)
     for approach in (1, 2):
         eng = FleetEngine(lanes, approach=approach, batch_size=50,
                           num_images=200)

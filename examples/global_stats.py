@@ -20,8 +20,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main() -> int:
     import numpy as np
 
-    with open("/root/reference/image_256x256.jpg", "rb") as f:
-        payload = f.read()
+    from hipe_tpu.io_.jpeg import encode_bytes
+    from hipe_tpu.utils.images import seeded_image
+
+    payload = encode_bytes(seeded_image(256, 256), quality=90)
 
     # --- serving: decode -> equalize -> encode ---
     from hipe_tpu.runtime.serve import ServingPipeline

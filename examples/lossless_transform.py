@@ -16,12 +16,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def main() -> int:
-    path = sys.argv[1] if len(sys.argv) > 1 else \
-        "/root/reference/image_320x240.jpg"
+    path = sys.argv[1] if len(sys.argv) > 1 else None
     n = int(sys.argv[2]) if len(sys.argv) > 2 else 64
 
-    with open(path, "rb") as f:
-        data = f.read()
+    if path is None:
+        from hipe_tpu.io_.jpeg import encode_bytes
+        from hipe_tpu.utils.images import REFERENCE_320, seeded_image
+
+        data = encode_bytes(seeded_image(*REFERENCE_320), quality=90)
+    else:
+        with open(path, "rb") as f:
+            data = f.read()
 
     from hipe_tpu.io_ import jpeg
     from hipe_tpu.ops import jpeg_transform as jt

@@ -1,7 +1,7 @@
-"""N-way row-split with ICI halo exchange over a device mesh.
+"""N-way row-split with halo exchange over a device mesh.
 
-On a multi-chip TPU slice this shards image rows across chips with
-`lax.ppermute` halo exchange; on a single host, simulate the mesh with
+On a multi-GPU host this shards image rows across the cards with
+`lax.ppermute` halo exchange; without cards, simulate the mesh with
 virtual CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \

@@ -13,10 +13,11 @@ def main() -> int:
     n_batches = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     batch_size = int(sys.argv[2]) if len(sys.argv) > 2 else 8
 
-    with open("/root/reference/image_256x256.jpg", "rb") as f:
-        a = f.read()
-    with open("/root/reference/image_320x240.jpg", "rb") as f:
-        b = f.read()
+    from hipe_tpu.io_.jpeg import encode_bytes
+    from hipe_tpu.utils.images import REFERENCE_256, REFERENCE_320, seeded_image
+
+    a = encode_bytes(seeded_image(*REFERENCE_256), quality=90)
+    b = encode_bytes(seeded_image(*REFERENCE_320), quality=90)
 
     from hipe_tpu.runtime.serve import ServingPipeline
 

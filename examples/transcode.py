@@ -1,4 +1,4 @@
-"""Full device transcode: JPEG in -> blur -> JPEG out, numeric work on TPU.
+"""Full device transcode: JPEG in -> blur -> JPEG out, numeric work on GPU.
 
 With decode_on_device + encode_on_device the host performs only the two
 serial entropy stages (jpeg_read_coefficients / jpeg_write_coefficients);
@@ -20,8 +20,10 @@ def main() -> int:
     num_images = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     batch_size = int(sys.argv[2]) if len(sys.argv) > 2 else 16
 
-    with open("/root/reference/image_256x256.jpg", "rb") as f:
-        payload = f.read()
+    from hipe_tpu.io_.jpeg import encode_bytes
+    from hipe_tpu.utils.images import seeded_image
+
+    payload = encode_bytes(seeded_image(256, 256), quality=90)
 
     from hipe_tpu.runtime.serve import ServingPipeline
 

@@ -1,20 +1,20 @@
-"""hipe_tpu — TPU-native Heterogeneous Image-Processing Engine.
+"""hipe_tpu — Heterogeneous Image-Processing Engine in JAX.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
-OpenCL heterogeneous Gaussian-blur engine
-(CC834/Heterogeneous-OpenCL-Image-Processing-Engine, mounted read-only at
-/root/reference). The reference's two standalone C programs become two
-sharding/partitioning strategies over one jitted pipeline:
+A JAX/XLA/Pallas framework with the capabilities of the reference OpenCL
+heterogeneous Gaussian-blur engine
+(CC834/Heterogeneous-OpenCL-Image-Processing-Engine). The reference's two
+standalone C programs become two sharding/partitioning strategies over one
+jitted pipeline:
 
 - image-level distribution (reference `heterogeneous_blur.c`) ->
-  :mod:`hipe_tpu.parallel.image_level` (batch-axis SPMD sharding over a TPU
-  mesh, plus a heterogeneous CPU+TPU two-lane executor);
+  :mod:`hipe_tpu.parallel.image_level` (batch-axis SPMD sharding over a
+  device mesh, plus a heterogeneous CPU+GPU two-lane executor);
 - split-image distribution (reference `split_image_blur.c`) ->
   :mod:`hipe_tpu.parallel.row_split` (H-axis sharding with halo exchange via
-  `lax.ppermute` over ICI).
+  `lax.ppermute`).
 
 The OpenCL kernel (reference `gaussian_kernel.cl:19-72`) becomes integer-exact
-XLA ops (:mod:`hipe_tpu.ops.blur`) and a Pallas TPU kernel
+XLA ops (:mod:`hipe_tpu.ops.blur`) and a Pallas Triton kernel for the GPU
 (:mod:`hipe_tpu.ops.pallas_blur`); CImg's JPEG codec becomes a native C++
 libjpeg codec (:mod:`hipe_tpu.io_.jpeg`).
 """

@@ -1,6 +1,6 @@
 """Command-line interface, mirroring the reference programs.
 
-Reference usage (`/root/reference/README.md:41-63`):
+Reference usage (`README.md:41-63`):
     ./heterogeneous_blur [cpu|gpu|both] [gpu_ratio] [batch_size]
     ./split_image_blur [gpu_ratio] [batch_size]
 
@@ -8,10 +8,13 @@ Here:
     python -m hipe_tpu.cli approach1 [both|cpu|gpu|tpu] [gpu_ratio] [batch]
     python -m hipe_tpu.cli approach2 [gpu_ratio] [batch]
 
-('gpu' is accepted as an alias for the accelerator lane — the TPU.) Invalid
-ratio/batch values warn and fall back to the defaults, exactly like the
-reference parser (`heterogeneous_blur.c:52-86`). Extra, TPU-era options are
-flags so the positional grammar stays reference-compatible.
+('gpu' names the accelerator lane, the JAX default device; 'tpu' is an
+older alias.)
+Invalid ratio/batch values warn and fall back to the defaults, exactly like
+the reference parser (`heterogeneous_blur.c:52-86`). Extra options are flags
+so the positional grammar stays reference-compatible. Without --image every
+mode runs on a seeded photo-like image of the reference's input size
+(--seed picks it); nothing is read from outside the repository.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from hipe_tpu.parallel import mesh as meshlib
 from hipe_tpu.parallel import partitioner as pt
 from hipe_tpu.profiling.report import CSV_COLUMNS, to_csv_row
 from hipe_tpu.runtime.engine import Engine, EngineConfig
-from hipe_tpu.utils.images import DEFAULT_IMAGE_320
+from hipe_tpu.utils import images as imglib
 
 
 def _add_kernel_flag(sp) -> None:
@@ -72,12 +75,14 @@ def _build_parser() -> argparse.ArgumentParser:
 
     st = sub.add_parser(
         "stream",
-        help="device-resident HBM stream (the TPU-native serving fast path)",
+        help="device-resident stream (the accelerator fast path)",
     )
     st.add_argument("pipeline_name", nargs="?", default="blur3")
     st.add_argument("--num-images", type=int, default=pt.NUM_IMAGES)
     st.add_argument("--image", default=None,
-                    help="input JPEG (default: the 256x256 asset)")
+                    help="input JPEG (default: a seeded 256x256 image)")
+    st.add_argument("--seed", type=int, default=0,
+                    help="seed of the generated input image")
     st.add_argument("--no-autotune", action="store_true",
                     help="skip the measured execution-config selection")
     st.add_argument("--retune", action="store_true",
@@ -104,16 +109,19 @@ def _build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--batch-size", type=int, default=100)
     sv.add_argument("--image", default=None,
                     help="input JPEG(s), comma-separated for a "
-                         "mixed-resolution stream (default: 256x256 asset)")
+                         "mixed-resolution stream (default: a seeded "
+                         "256x256 image)")
+    sv.add_argument("--seed", type=int, default=0,
+                    help="seed of the generated input image")
     sv.add_argument("--quality", type=int, default=90,
                     help="JPEG quality for the simulated input stream "
                          "and the encoded outputs")
     sv.add_argument("--decode-on-device", action="store_true",
                     help="host does entropy decode only; IDCT/upsample/"
-                         "color run on the TPU fused with the filter")
+                         "color run on the device fused with the filter")
     sv.add_argument("--encode-on-device", action="store_true",
                     help="host does entropy encode only; color/downsample/"
-                         "fDCT/quantize run on the TPU fused with the "
+                         "fDCT/quantize run on the device fused with the "
                          "filter (byte-identical output files)")
     sv.add_argument("--encode-subsampling", default="420",
                     choices=("420", "444", "422", "440",
@@ -145,7 +153,7 @@ def _build_parser() -> argparse.ArgumentParser:
     sv.add_argument("--resize", type=int, nargs=2, default=None,
                     metavar=("H", "W"),
                     help="arbitrary output size: filter, then the "
-                         "integer-exact bilinear resize (MXU banded "
+                         "integer-exact bilinear resize (banded "
                          "matmuls), then encode")
     sv.add_argument("--cutoff", type=int, nargs="+", default=None,
                     metavar="PCT",
@@ -204,10 +212,13 @@ def _build_parser() -> argparse.ArgumentParser:
                     help="save reassembled batch-0 image (SAVE_IMAGE analog)")
 
     for sp in (a1, a2):
-        sp.add_argument("--image", default=DEFAULT_IMAGE_320,
-                        help="input JPEG (default: the reference 320x240); "
-                             "comma-separate paths for a mixed-resolution "
-                             "stream (BASELINE config 5)")
+        sp.add_argument("--image", default=None,
+                        help="input JPEG (default: a seeded image of the "
+                             "reference's 320x240 size); comma-separate "
+                             "paths for a mixed-resolution stream "
+                             "(BASELINE config 5)")
+        sp.add_argument("--seed", type=int, default=0,
+                        help="seed of the generated input image")
         sp.add_argument("--num-images", type=int, default=pt.NUM_IMAGES)
         sp.add_argument("--pipeline", default="blur3",
                         help="blur3|blur5|blur7|blur9|sharpen|edge|chain or "
@@ -244,13 +255,11 @@ def _build_parser() -> argparse.ArgumentParser:
 
 
 def _main_stream(args) -> int:
-    """The device-resident stream mode: decode once, process in HBM."""
+    """The device-resident stream mode: load once, process on the device."""
     import json
 
-    from hipe_tpu.io_.jpeg import decode_file
     from hipe_tpu.models.pipelines import PIPELINES
     from hipe_tpu.runtime.device_stream import DeviceStreamRunner
-    from hipe_tpu.utils.images import DEFAULT_IMAGE_256
 
     if "," in args.pipeline_name:
         from hipe_tpu.models import pipelines as plib
@@ -287,14 +296,15 @@ def _main_stream(args) -> int:
     if param_pipe is not None:
         stream_pipeline = param_pipe
     try:
-        image = decode_file(args.image or DEFAULT_IMAGE_256)
+        image = imglib.load_test_image(args.image, seed=args.seed)
     except (FileNotFoundError, ValueError) as e:
         print(f"Error: cannot load input image: {e}", file=sys.stderr)
         return 1
     h, w, c = image.shape
     print("========== DEVICE-STREAM CONFIGURATION ==========")
     print(f"Pipeline: {args.pipeline_name}")
-    print(f"Stream: {args.num_images} images of {w}x{h}x{c} (HBM-resident)")
+    print(f"Stream: {args.num_images} images of {w}x{h}x{c} "
+          "(device-resident)")
     runner = DeviceStreamRunner(
         stream_pipeline, num_images=args.num_images, image=image
     )
@@ -305,8 +315,6 @@ def _main_stream(args) -> int:
         hit = " (cache hit, sweep skipped)" if runner.tuning.get(
             "cache_hit") else ""
         print(f"Chosen config: {runner.tuning['chosen']}{hit}")
-        for label, exc in (runner.tuning.get("skipped") or {}).items():
-            print(f"  autotune skipped {label}: {exc}")
     err = runner.verify_max_abs_err()
     res = runner.measure_throughput(passes=args.passes, reps=3)
     print("\n========== DEVICE-STREAM RESULTS ==========")
@@ -314,7 +322,8 @@ def _main_stream(args) -> int:
     print(f"   Per-pass time: {res['per_pass_s'] * 1e3:.2f} ms")
     print(f"   Overall throughput: {res['mpix_per_s']:.2f} Megapixels/sec")
     print(f"   Images per second: {res['img_per_s']:.2f}")
-    print(f"   Effective HBM bandwidth: {res['hbm_gb_per_s']:.0f} GB/s")
+    print(f"   Effective device-memory traffic: {res['gb_per_s']:.0f} GB/s")
+    print(f"   Kernel: {runner.kernel_name}")
     if args.json:
         print(json.dumps({
             "pipeline": args.pipeline_name,
@@ -322,8 +331,9 @@ def _main_stream(args) -> int:
             "img_per_s": round(res["img_per_s"], 1),
             "max_abs_err": err,
             "config": (runner.tuning or {}).get("chosen", "default"),
+            "kernel": runner.kernel_name,
         }))
-    # Exact equality is the repo-wide contract (CLAUDE.md): any nonzero
+    # Exact equality is the repo-wide contract: any nonzero
     # device-vs-oracle error is a kernel regression, never tolerance.
     return 0 if err == 0 else 1
 
@@ -379,10 +389,9 @@ def _main_serve(args) -> int:
     """Streaming decode -> filter -> encode service over a JPEG stream."""
     import json
 
-    from hipe_tpu.io_.jpeg import decode_file, encode_bytes
+    from hipe_tpu.io_.jpeg import encode_bytes
     from hipe_tpu.models.pipelines import PIPELINES
     from hipe_tpu.runtime.serve import ServingPipeline
-    from hipe_tpu.utils.images import DEFAULT_IMAGE_256
 
     if "," in args.pipeline_name:
         # Comma-joined filter chains, same as approach1/approach2
@@ -412,10 +421,12 @@ def _main_serve(args) -> int:
             )
             return 1
         serve_pipeline = plib.get(args.pipeline_name)
-    paths = (args.image or DEFAULT_IMAGE_256).split(",")
+    paths = args.image.split(",") if args.image else [None]
     try:
         payloads = [
-            encode_bytes(decode_file(p), quality=args.quality) for p in paths
+            encode_bytes(imglib.load_test_image(p, seed=args.seed),
+                         quality=args.quality)
+            for p in paths
         ]
     except (FileNotFoundError, ValueError) as e:
         print(f"Error: cannot load input image: {e}", file=sys.stderr)
@@ -426,7 +437,7 @@ def _main_serve(args) -> int:
     print(f"Stream: {args.num_images} JPEGs ({len(paths)} source image(s)), "
           f"batch {batch}, quality {args.quality}")
     decode_desc = (
-        "device (entropy on host, IDCT/upsample/color on TPU)"
+        "device (entropy on host, IDCT/upsample/color on the device)"
         if args.decode_on_device else "host (native libjpeg)"
     )
     print(f"Decode: {decode_desc}")
@@ -440,7 +451,8 @@ def _main_serve(args) -> int:
               f"device encoder; encoding on host instead.")
         args.encode_on_device = False
     encode_desc = (
-        "device (color/downsample/fDCT/quantize on TPU, entropy on host)"
+        "device (color/downsample/fDCT/quantize on the device, entropy on "
+        "host)"
         if args.encode_on_device else "host (native libjpeg)"
     )
     if not args.no_encode:
@@ -758,24 +770,26 @@ def main(argv: list[str] | None = None) -> int:
 
     name = "HETEROGENEOUS" if approach == 1 else "SPLIT-IMAGE"
     print(f"========== {name} CONFIGURATION ==========")
-    print(f"Input file: {args.image}")
+    print(f"Input file: {args.image or f'seeded image (seed {args.seed})'}")
     print(f"Number of images in stream: {cfg.num_images}")
     print(f"Batch size: {cfg.batch_size} images")
     print(f"Number of batches: {pt.num_batches(cfg.num_images, cfg.batch_size)}")
     print(f"Pipeline: {cfg.pipeline}")
     if approach == 1:
         print(f"Mode: {cfg.mode}")
-        print(f"TPU ratio: {cfg.gpu_ratio * 100:.1f}% TPU, "
+        print(f"GPU ratio: {cfg.gpu_ratio * 100:.1f}% GPU, "
               f"{(1 - cfg.gpu_ratio) * 100:.1f}% CPU")
     else:
-        print(f"TPU ratio: {cfg.gpu_ratio * 100:.1f}% (rows to TPU)")
+        print(f"GPU ratio: {cfg.gpu_ratio * 100:.1f}% (rows to GPU)")
     print("================================================\n")
 
-    from hipe_tpu.io_.jpeg import decode_file
-
-    paths = args.image.split(",")
+    paths = args.image.split(",") if args.image else [None]
     try:
-        images = [np.ascontiguousarray(decode_file(p)) for p in paths]
+        images = [
+            np.ascontiguousarray(imglib.load_test_image(
+                p, size=imglib.REFERENCE_320, seed=args.seed))
+            for p in paths
+        ]
     except (FileNotFoundError, ValueError) as e:
         print(f"Error: cannot load input image: {e}", file=sys.stderr)
         return 1
@@ -783,7 +797,8 @@ def main(argv: list[str] | None = None) -> int:
     h, w, c = image.shape
     for p, im in zip(paths, images):
         ih, iw, ic = im.shape
-        print(f"Original image loaded: {iw}x{ih}, {ic} channels ({p})")
+        print(f"Original image loaded: {iw}x{ih}, {ic} channels "
+              f"({p or 'seeded'})")
     print(f"Size of one image: {image.nbytes} bytes "
           f"({image.nbytes / 1024.0:.2f} KB)\n")
 
@@ -798,10 +813,10 @@ def main(argv: list[str] | None = None) -> int:
         rs = pt.row_split(h, cfg.gpu_ratio, halo=plib.get(cfg.pipeline).radius)
         print("\nSplit configuration:")
         print(f"  Split row: {rs.split_row} (CPU: rows 0-{rs.split_row - 1}, "
-              f"TPU: rows {rs.split_row}-{h - 1})")
+              f"GPU: rows {rs.split_row}-{h - 1})")
         print(f"  CPU: {rs.cpu_input_rows} input rows (inc. halo), "
               f"{rs.cpu_output_rows} output rows")
-        print(f"  TPU: {rs.gpu_input_rows} input rows (inc. halo), "
+        print(f"  GPU: {rs.gpu_input_rows} input rows (inc. halo), "
               f"{rs.gpu_output_rows} output rows")
 
     print(f"\nStarting batch processing of {cfg.num_images} images in "

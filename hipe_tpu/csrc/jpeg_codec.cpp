@@ -1,10 +1,10 @@
-// Native JPEG codec for hipe_tpu — the TPU-native replacement for the
-// reference's vendored CImg image IO (/root/reference/CImg/CImg.h load_jpeg /
+// Native JPEG codec for hipe_tpu — the replacement for the
+// reference's vendored CImg image IO (CImg/CImg.h load_jpeg /
 // save_jpeg entry points used by heterogeneous_blur.c:106-137). Decodes
 // directly to interleaved HWC uint8 (the layout the reference converts to by
 // hand, heterogeneous_blur.c:128-135) and encodes back. A pthread pool
 // provides batched decode for the streaming input pipeline so host decode
-// can keep up with the TPU.
+// can keep up with the device.
 //
 // Built as a shared library and bound via ctypes (see hipe_tpu/io_/jpeg.py).
 
@@ -244,7 +244,7 @@ int hipe_jpeg_encode(const unsigned char* img, int w, int h, int c,
 
 // ---- Entropy-only decode: quantized DCT coefficients out ----
 //
-// The TPU-native decode split: the host does only the serial, branchy part
+// The device decode split: the host does only the serial, branchy part
 // of JPEG decode (Huffman/arithmetic entropy decoding, via
 // jpeg_read_coefficients), and ships quantized DCT coefficient planes to the
 // device, where dequantize + IDCT + chroma upsample + YCbCr->RGB run as
@@ -575,7 +575,7 @@ int hipe_jpeg_quality_tables(int quality, unsigned short* qtabs /*2*64*/) {
 }
 
 // Entropy-encode pre-computed quantized DCT coefficients into a full JPEG
-// file (the host half of the TPU-side encode: the device does color
+// file (the host half of the device-side encode: the device does color
 // conversion, downsampling, forward DCT and quantization —
 // hipe_tpu/ops/jpeg_encode.py — and this writes the entropy-coded stream
 // via jpeg_write_coefficients, exactly as jpegtran does).
@@ -803,11 +803,11 @@ int hipe_jpeg_decode_batch(const unsigned char* const* bufs,
 //
 // The device transcode path (hipe_tpu/runtime/serve.py) keeps only the
 // serial entropy stages on the host; these batch entry points run them
-// GIL-free on a pthread work queue, replacing per-image ctypes fan-out —
-// the measured serving bottleneck (host entropy 3.3-9k img/s vs device
-// 25-113k, benchmarks/FINDINGS.md). Same pattern as hipe_jpeg_decode_batch.
+// GIL-free on a pthread work queue, replacing per-image ctypes fan-out,
+// since host entropy coding is the serial part of a served transcode.
+// Same pattern as hipe_jpeg_decode_batch.
 // Replaces (at batch scale) the reference's serial host IO loop,
-// /root/reference/heterogeneous_blur.c:106-137.
+// heterogeneous_blur.c:106-137.
 
 namespace {
 

@@ -1,1 +1,1 @@
-"""Image IO: native libjpeg codec with a PIL fallback."""
+"""Image IO: the native libjpeg codec (a missing codec raises)."""

@@ -1,11 +1,12 @@
 """JPEG decode/encode — native C++ (libjpeg) codec bound via ctypes.
 
 Replaces the reference's vendored CImg header (used only for JPEG IO,
-`/root/reference/heterogeneous_blur.c:19-20,106-137`) with a purpose-built
-native codec (`hipe_tpu/csrc/jpeg_codec.cpp`): decode straight to interleaved
-HWC uint8, batched multithreaded decode for the streaming pipeline, and
-in-memory encode. Builds the shared library on first use; falls back to PIL
-if the native build is unavailable.
+`heterogeneous_blur.c:19-20,106-137`) with a purpose-built native codec
+(`hipe_tpu/csrc/jpeg_codec.cpp`): decode straight to interleaved HWC uint8,
+batched multithreaded decode for the streaming pipeline, and in-memory
+encode. Builds the shared library on first use with ``g++ ... -ljpeg``;
+where that build is impossible (no compiler or no libjpeg headers) every
+JPEG entry point raises — there is no substitute codec.
 """
 
 from __future__ import annotations
@@ -173,6 +174,16 @@ def native_available() -> bool:
     return _load() is not None
 
 
+def _require() -> ctypes.CDLL:
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(
+            "native JPEG codec unavailable: building hipe_tpu/csrc/"
+            "jpeg_codec.cpp needs g++ and the libjpeg headers (jpeglib.h)"
+        )
+    return lib
+
+
 def _as_u8p(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte))
 
@@ -187,12 +198,7 @@ def decode_bytes(data: bytes, force_gray: bool = False) -> np.ndarray:
     never touched — libjpeg's fast gray path); 4-component streams have
     no gray conversion and raise.
     """
-    lib = _load()
-    if lib is None:
-        out = _pil_decode(data)
-        if force_gray and out.shape[-1] == 3:
-            raise RuntimeError("force_gray needs the native codec")
-        return out
+    lib = _require()
     buf = np.frombuffer(data, dtype=np.uint8)
     w = ctypes.c_int()
     h = ctypes.c_int()
@@ -217,8 +223,7 @@ def decode_file(path: str) -> np.ndarray:
 
     JPEG content (SOI-marked) goes through the native codec; anything
     else (BMP / PNG / PPM / ... — the formats the reference's CImg
-    loader dispatches on by extension, /root/reference/CImg/CImg.h
-    `load()`) decodes via PIL. Content sniffing, not extension, decides:
+    loader dispatches on by extension, CImg.h `load()`) decodes via PIL. Content sniffing, not extension, decides:
     a mislabeled .jpg still takes the right path.
     """
     with open(path, "rb") as f:
@@ -308,11 +313,7 @@ def decode_batch(datas: list[bytes], num_threads: int | None = None,
     """Decode same-shaped JPEGs concurrently into one (B, H, W, C) batch."""
     if not datas:
         raise ValueError("empty batch")
-    lib = _load()
-    if lib is None:
-        if force_gray:
-            raise RuntimeError("force_gray needs the native codec")
-        return np.stack([_pil_decode(d) for d in datas])
+    lib = _require()
     first = decode_bytes(datas[0], force_gray=force_gray)
     h, w, c = first.shape
     out = np.empty((len(datas), h, w, c), dtype=np.uint8)
@@ -382,9 +383,7 @@ def _run_encode(call, cap0: int) -> bytes:
 def encode_bytes(img: np.ndarray, quality: int = 90) -> bytes:
     """Encode HWC uint8 to JPEG bytes."""
     assert img.dtype == np.uint8 and img.ndim == 3
-    lib = _load()
-    if lib is None:
-        return _pil_encode(img, quality)
+    lib = _require()
     img = np.ascontiguousarray(img)
     h, w, c = img.shape
     return _run_encode(
@@ -413,7 +412,7 @@ def encode_file(img: np.ndarray, path: str, quality: int = 90) -> None:
     Image.fromarray(arr).save(path)
 
 
-# ---- Entropy-only decode (feeds the TPU-side device decode) ----
+# ---- Entropy-only decode (feeds the device-side decode) ----
 
 
 @dataclasses.dataclass
@@ -431,7 +430,7 @@ class ComponentCoefs:
 class JpegCoefficients:
     """Entropy-decoded JPEG: everything the device needs to finish decoding.
 
-    The host-side half of the TPU-native decode split: libjpeg's
+    The host-side half of the device decode split: libjpeg's
     jpeg_read_coefficients does the serial Huffman work (baseline or
     progressive); dequantize + IDCT + upsample + color conversion run on
     device (hipe_tpu/ops/jpeg_decode.py).
@@ -698,7 +697,7 @@ def write_coefficients(
     jpeg_set_quality tables (lossless transforms of streams whose
     tables are transposed or non-standard need this).
 
-    The host half of the TPU-side encode (ops/jpeg_encode.py computes the
+    The host half of the device-side encode (ops/jpeg_encode.py computes the
     coefficients on device). coefs[i]: (Hb_i, Wb_i, 64) int16 in natural
     order, the unpadded block grid; MCU-edge dummy blocks are synthesized
     natively with the direct encoder's jccoefct.c semantics, so for
@@ -755,7 +754,7 @@ def write_coefficients(
 # pool — two ctypes calls per batch instead of 2*B, and the Huffman work
 # runs fully parallel. These feed ServingPipeline (runtime/serve.py), the
 # path that replaces the reference's serial host IO loop
-# (/root/reference/heterogeneous_blur.c:106-137) at serving scale.
+# (heterogeneous_blur.c:106-137) at serving scale.
 
 _INFO_LEN = 27  # mirrors INFO_LEN in jpeg_codec.cpp
 
@@ -942,7 +941,7 @@ def write_coefficients_batch(
     return results
 
 
-# ---- PIL fallbacks (environments without g++/libjpeg) ----
+# ---- Non-JPEG formats (BMP / PNG / PPM / ...) via PIL ----
 
 def _pil_decode(data: bytes) -> np.ndarray:
     import io
@@ -955,20 +954,4 @@ def _pil_decode(data: bytes) -> np.ndarray:
     arr = np.asarray(img, dtype=np.uint8)
     if arr.ndim == 2:
         arr = arr[:, :, None]
-    # CMYK keeps the native codec's 4-channel shape contract. Values can
-    # differ from libjpeg's raw output for Adobe streams (PIL applies the
-    # inverted-CMYK convention); the fallback is shape-faithful, not
-    # bit-faithful, for 4-component files.
     return arr
-
-
-def _pil_encode(img: np.ndarray, quality: int) -> bytes:
-    import io
-
-    from PIL import Image
-
-    mode = "L" if img.shape[2] == 1 else "RGB"
-    pimg = Image.fromarray(img.squeeze(-1) if mode == "L" else img, mode)
-    buf = io.BytesIO()
-    pimg.save(buf, format="JPEG", quality=quality)
-    return buf.getvalue()

@@ -1,17 +1,19 @@
 """Filter pipelines — the deployable "models" of the engine.
 
-Each pipeline is a named chain of integer-exact uint8 filters with two
-execution paths: the XLA path on channels-last batches (works on any JAX
-backend, used for the heterogeneous CPU lane) and the Pallas TPU path on
-planar planes (the accelerator hot path). The pipeline registry covers the
+Each pipeline is a named chain of integer-exact uint8 filters. Every stage
+runs on the XLA path (:mod:`hipe_tpu.ops.blur`), on any JAX backend and in
+any layout. One family also has a hand-written GPU kernel: a single
+separable Gaussian over planar planes runs the Pallas Triton kernel of
+:mod:`hipe_tpu.ops.pallas_blur` when ``use_pallas=True``. The interleaved
+rows layout stays on XLA: relayout to planes + kernel + relayout back
+measured slower than XLA's rows fusion on an H100. The registry covers the
 workloads in BASELINE.json: the reference 3x3 blur, the large-radius
-separable Gaussians, and the blur->sharpen->edge multi-pass chain.
+separable Gaussians, and the blur->sharpen->edge chain.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
 
 import jax
 
@@ -19,19 +21,13 @@ from hipe_tpu.ops import blur as xblur
 from hipe_tpu.ops import pallas_blur
 
 
-# Whole (H, W) planes above this pixel count can't fit VMEM with working-
-# set headroom; apply_planar then routes to the halo-tiled kernels.
-WHOLE_PLANE_PIXEL_LIMIT = 2 * 2**20
-
-# Global-statistics applies (LUT gathers / comparison-sums / luma blends)
+# Global-statistics applies (LUT gathers / luma blends)
 # carry int32 temps per pixel that XLA materializes at stream scale: at
-# the 5000-image resident stream (15000 planes) the equalize gather's
-# s32 index + output temps alone are ~8 GB and the compile OOMs HBM
-# ("Used 16.48G of 15.75G", campaign log 2026-08-19). Above this many
-# planes, GlobalStatsPipeline.apply_planar runs the op as a lax.map over
-# equal chunks (largest divisor of N that is a multiple of the channel
-# count and <= the limit) — bit-identical because every statistic is
-# per-image, and each ~200 MB chunk stays far above the bandwidth knee.
+# the 5000-image resident stream (15000 planes) one s32 temp is ~4 GB.
+# Above this many planes, GlobalStatsPipeline.apply_planar runs the op as a
+# lax.map over equal chunks (largest divisor of N that is a multiple of the
+# channel count and <= the limit) — bit-identical because every statistic
+# is per-image.
 GLOBAL_STATS_PLANE_CHUNK = 3072
 
 
@@ -55,6 +51,15 @@ def _global_stats_chunk(n: int, channels: int) -> int | None:
     return None
 
 
+def default_use_pallas(device) -> bool:
+    """Whether the hand-written kernels apply on ``device``.
+
+    They are compiled for CUDA devices only; every other platform runs the
+    XLA path.
+    """
+    return getattr(device, "platform", "cpu") == "gpu"
+
+
 @dataclasses.dataclass(frozen=True)
 class Pipeline:
     """A named uint8->uint8 filter chain."""
@@ -62,168 +67,69 @@ class Pipeline:
     name: str
     filters: tuple
 
-    # Stencil pipelines expose Pallas block/alias knobs; global-statistics
-    # pipelines don't (DeviceStreamRunner.autotune skips the block sweep
-    # when this is False — it would time identical programs).
-    has_pallas_blocks = True
-
-    @staticmethod
-    def routes_tiled(h: int, w: int) -> bool:
-        """Whether apply_planar sends (h, w) planes to the tiled kernels
-        (which take no alias/block_planes knobs)."""
-        return h * w > WHOLE_PLANE_PIXEL_LIMIT
-
     @property
     def radius(self) -> int:
         """Total stencil radius (halo rows needed per side for row-split)."""
         return xblur.chain_radius(self.filters)
 
+    @property
+    def has_kernel(self) -> bool:
+        """Whether the planar path has a hand-written kernel: a single
+        separable Gaussian stage."""
+        return len(self.filters) == 1 and self.filters[0].startswith(
+            "gaussian")
+
+    def kernel_name(self, use_pallas: bool, layout: str = "planar") -> str:
+        """Which implementation the ``layout`` path runs."""
+        if use_pallas and self.has_kernel and layout == "planar":
+            return f"pallas-triton:{self.filters[0]}_planar"
+        return "xla"
+
     def __call__(self, x: jax.Array) -> jax.Array:
         """XLA path on (..., H, W, C) uint8 batches."""
         return xblur.filter_chain(x, self.filters)
 
-    @property
-    def has_band_stages(self) -> bool:
-        """Whether the chain routes to the MXU banded-matmul kernel (the
-        path with an int8 x int8 -> int32 band variant). Mirrors the
-        `mxu_ok` routing rule in filter_chain_planar_pallas: EVERY stage
-        must be a band or point stage — a mixed chain (e.g. denoise's
-        median + gaussian3) takes the VPU chain kernel, where int8 configs
-        would all fail to build and pollute the autotune skip log."""
-        return any(
-            nm.startswith("gaussian") or nm in ("sharpen", "edge")
-            for nm in self.filters
-        ) and all(
-            nm.startswith("gaussian") or nm in ("sharpen", "edge")
-            or nm in xblur.POINT_STAGES
-            for nm in self.filters
-        )
-
-    @property
-    def has_rank_stages(self) -> bool:
-        """Whether any stage is a rank-family min/max network (the stages
-        with an int16-network variant — autotune's ``pallas_i16_*``)."""
-        return bool(xblur.rank_stage_names(self.filters))
-
-    def apply_planar(self, planes: jax.Array, *, use_pallas: bool = True,
-                     h_pad: bool = True, interpret: bool = False,
-                     alias: bool = False,
-                     block_planes: int | None = None,
-                     vmem_limit_mb: int | None = None,
-                     int8_bands: bool = False,
-                     int16_ranks: bool = False) -> jax.Array:
-        """Planar (N, H, W) path; Pallas on TPU, XLA elsewhere.
+    def apply_planar(self, planes: jax.Array, *, use_pallas: bool = False,
+                     h_pad: bool = True, interpret: bool = False
+                     ) -> jax.Array:
+        """Planar (N, H, W) path: the GPU kernel where one exists, else XLA.
 
         ``h_pad=False`` treats H as halo-padded by :attr:`radius` rows per
         side and returns the valid interior (row-split shard mode).
-        ``alias=True`` writes in-place into the input's HBM buffer when the
-        shapes allow (h_pad=True) — ~2x DMA throughput on dead inputs (loop
-        carries / donated args); XLA copy-protects live ones. See
-        :func:`hipe_tpu.ops.pallas_blur.gaussian_blur_planar_pallas`.
         """
-        # Whole planes must fit VMEM with working-set headroom; very large
-        # images (e.g. the reference's 4000x2250 asset) use the halo-tiled
-        # kernels (stage-by-stage for chains, exact per-stage edge clamp).
-        if use_pallas and self.routes_tiled(planes.shape[1], planes.shape[2]):
-            if int8_bands or int16_ranks:
-                raise ValueError(
-                    "int8_bands/int16_ranks are fused whole-plane knobs; "
-                    f"{planes.shape[1]}x{planes.shape[2]} planes route to "
-                    "the tiled kernels"
-                )
-            if h_pad:
-                return pallas_blur.filter_chain_planar_tiled_pallas(
-                    planes, self.filters, interpret=interpret
-                )
-            use_pallas = False  # halo (valid) mode on oversized planes: XLA
-        if use_pallas:
-            if (len(self.filters) == 1
-                    and self.filters[0].startswith("gaussian")
-                    and not int8_bands and not int16_ranks):
-                # (int16_ranks on a gaussian falls through to the chain
-                # kernel, which rejects it with the precise error.)
-                radius = xblur.FILTER_RADIUS[self.filters[0]]
-                return pallas_blur.gaussian_blur_planar_pallas(
-                    planes, radius, h_pad=h_pad, interpret=interpret,
-                    alias=alias, block_planes=block_planes,
-                    vmem_limit_mb=vmem_limit_mb,
-                )
-            # int8_bands routes single gaussians through the chain kernel
-            # too (its band machinery carries the int8 variant).
-            return pallas_blur.filter_chain_planar_pallas(
-                planes, self.filters, h_pad=h_pad, interpret=interpret,
-                alias=alias, block_planes=block_planes,
-                vmem_limit_mb=vmem_limit_mb, int8_bands=int8_bands,
-                int16_ranks=int16_ranks,
+        if use_pallas and self.has_kernel:
+            return pallas_blur.gaussian_blur_planar_pallas(
+                planes, xblur.FILTER_RADIUS[self.filters[0]], h_pad=h_pad,
+                interpret=interpret,
             )
-        if int8_bands or int16_ranks:
-            raise ValueError("int8_bands/int16_ranks are Pallas knobs; "
-                             "use_pallas=False runs the XLA path")
         return xblur.filter_chain(
             planes, self.filters, h_axis=-2, w_axis=-1, h_pad=h_pad
         )
 
     def apply_rows(self, rows: jax.Array, channels: int, *,
-                   use_pallas: bool = True,
-                   interpret: bool = False,
-                   alias: bool = False) -> jax.Array:
-        """Interleaved rows (B, H, W*C) — the canonical TPU device layout.
+                   use_pallas: bool = False) -> jax.Array:
+        """Interleaved rows (B, H, W*C) — the channels-last device layout.
 
-        4-D NHWC uint8 arrays are pathological on TPU (the C=3 lane axis
-        tiles to 128, ~42x HBM inflation), so device-side channels-last
-        data travels as rows: a free host-side reshape of interleaved RGB.
-        Eligible geometries run the transpose-free rows Pallas kernels;
-        oversized geometries relayout to planar on device; `use_pallas=False`
-        uses the rows-native XLA ops (the CPU lane path).
+        Always the rows-native XLA ops (see the module docstring);
+        ``use_pallas`` is accepted so that callers treat every pipeline
+        class alike.
         """
-        b, h, lane = rows.shape
-        assert lane % channels == 0
-        w = lane // channels
-        known = all(
-            nm.startswith("gaussian") or nm in ("sharpen", "edge")
-            for nm in self.filters
-        )
-        if (
-            use_pallas
-            and known
-            and len(self.filters) == 1
-            and self.filters[0].startswith("gaussian")
-            and pallas_blur.nhwc_pallas_eligible(h, w, channels)
-        ):
-            # Single blur: the rows kernel is transpose-free at equal speed.
-            # Chains fall through to the planar route below: the rows-chain
-            # bands cost C x the MXU FLOPs per stage, which measures slower
-            # than paying the (cheap) device relayout once.
-            radius = xblur.FILTER_RADIUS[self.filters[0]]
-            return pallas_blur.gaussian_blur_rows_pallas(
-                rows, channels, radius, interpret=interpret, alias=alias
-            )
-        if use_pallas:
-            planes = rows.reshape(b, h, w, channels)
-            planes = planes.transpose(0, 3, 1, 2).reshape(b * channels, h, w)
-            # The transposed planes are a temporary: always safe to alias.
-            out = self.apply_planar(planes, use_pallas=True,
-                                    interpret=interpret, alias=alias)
-            out = out.reshape(b, channels, h, w).transpose(0, 2, 3, 1)
-            return out.reshape(b, h, lane)
+        assert rows.shape[-1] % channels == 0
         return xblur.filter_chain_rows(rows, channels, self.filters)
 
-    def apply_nhwc(self, x: jax.Array, *, use_pallas: bool = True,
-                   interpret: bool = False) -> jax.Array:
-        """(B, H, W, C) wrapper over :meth:`apply_rows` (host-side arrays)."""
+    def apply_nhwc(self, x: jax.Array, *, use_pallas: bool = False) -> jax.Array:
+        """(B, H, W, C) wrapper over :meth:`apply_rows`."""
         b, h, w, c = x.shape
-        out = self.apply_rows(
-            x.reshape(b, h, w * c), c, use_pallas=use_pallas,
-            interpret=interpret,
-        )
+        out = self.apply_rows(x.reshape(b, h, w * c), c, use_pallas=use_pallas)
         return out.reshape(b, h, w, c)
 
-    def nhwc_halo_fn(self, *, use_pallas: bool = True, interpret: bool = False):
+    def nhwc_halo_fn(self, *, use_pallas: bool = False,
+                     interpret: bool = False):
         """A halo-consuming NHWC block fn for row-split shard bodies.
 
         Takes (B, H + 2*radius, W, C) uint8 and returns (B, H, W, C); pair it
         with ``make_row_split_fn(..., local_fn=..., radius=pipeline.radius)``
-        to run the Pallas kernels per shard on a TPU mesh.
+        to run the planar kernels per shard on a device mesh.
 
         Single-filter pipelines only: a multi-stage chain applied in one
         halo-padded 'valid' pass would diverge within `radius` rows of the
@@ -252,7 +158,8 @@ class Pipeline:
 
         return fn
 
-    def nhwc_clamp_fn(self, *, use_pallas: bool = True, interpret: bool = False):
+    def nhwc_clamp_fn(self, *, use_pallas: bool = False,
+                      interpret: bool = False):
         """A clamp-mode NHWC block fn (rows in == rows out) for window slabs.
 
         Pair with ``make_row_split_fn(..., local_fn=..., local_clamp=True,
@@ -315,11 +222,9 @@ class GlobalStatsPipeline:
     ``make_autocontrast_row_split_fn`` — psum of partial histograms and
     pmin/pmax of extrema respectively).
 
-    ``use_pallas=True`` on the apply methods selects the fused
-    comparison-sum LUT apply (bit-identical to the gather; see
-    ``ops/equalize.py``) — there are no Pallas block/alias knobs, which
-    the methods accept and ignore so the runtime's call sites
-    (engine lanes, serving, DeviceStreamRunner) work unchanged.
+    This family has no hand-written kernel: every layout runs XLA, and
+    ``use_pallas`` is accepted so that callers treat every pipeline class
+    alike.
     """
 
     name: str
@@ -333,7 +238,7 @@ class GlobalStatsPipeline:
     # (B*C, H, W) with no channel info; rows/nhwc layouts carry their own).
     channels: int = 3
 
-    has_pallas_blocks = False
+    has_kernel = False  # DeviceStreamRunner.autotune times XLA alone
 
     def __post_init__(self):
         if not self.filters:
@@ -398,11 +303,12 @@ class GlobalStatsPipeline:
         """XLA path on (..., H, W, C) uint8 batches."""
         return self._op("nhwc")(x)
 
-    def apply_planar(self, planes: jax.Array, *, use_pallas: bool = True,
-                     h_pad: bool = True, interpret: bool = False,
-                     alias: bool = False,
-                     block_planes: int | None = None,
-                     vmem_limit_mb: int | None = None) -> jax.Array:
+    def kernel_name(self, use_pallas: bool, layout: str = "planar") -> str:
+        return "xla"
+
+    def apply_planar(self, planes: jax.Array, *, use_pallas: bool = False,
+                     h_pad: bool = True, interpret: bool = False
+                     ) -> jax.Array:
         if not h_pad:
             raise ValueError(
                 f"pipeline {self.name!r}: halo (h_pad=False) mode is "
@@ -415,20 +321,16 @@ class GlobalStatsPipeline:
             from jax import lax
 
             out = lax.map(
-                lambda ch: fn(ch, use_cmp=use_pallas),
-                planes.reshape(n // chunk, chunk, *planes.shape[1:]),
-            )
+                fn, planes.reshape(n // chunk, chunk, *planes.shape[1:]))
             return out.reshape(planes.shape)
-        return fn(planes, use_cmp=use_pallas)
+        return fn(planes)
 
     def apply_rows(self, rows: jax.Array, channels: int, *,
-                   use_pallas: bool = True, interpret: bool = False,
-                   alias: bool = False) -> jax.Array:
-        return self._op("rows")(rows, channels, use_cmp=use_pallas)
+                   use_pallas: bool = False) -> jax.Array:
+        return self._op("rows")(rows, channels)
 
-    def apply_nhwc(self, x: jax.Array, *, use_pallas: bool = True,
-                   interpret: bool = False) -> jax.Array:
-        return self._op("nhwc")(x, use_cmp=use_pallas)
+    def apply_nhwc(self, x: jax.Array, *, use_pallas: bool = False) -> jax.Array:
+        return self._op("nhwc")(x)
 
     def nhwc_halo_fn(self, **kw):
         self.radius  # raises with the explanation
@@ -453,8 +355,7 @@ PIPELINES = {
     "dilate": Pipeline("dilate", ("dilate",)),
     "open": Pipeline("open", ("erode", "dilate")),
     "close": Pipeline("close", ("dilate", "erode")),
-    # 5x5/7x7/9x9 rank filters (PIL MedianFilter(n), odd-even
-    # transposition net; exec-path viability at 7/9: probe_rank79.json).
+    # 5x5/7x7/9x9 rank filters (PIL MedianFilter(n); see ops/blur.py).
     "median5": Pipeline("median5", ("median5",)),
     "median7": Pipeline("median7", ("median7",)),
     "median9": Pipeline("median9", ("median9",)),

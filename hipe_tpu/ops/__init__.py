@@ -1,1 +1,1 @@
-"""Compute ops: integer-exact image filters (XLA + Pallas TPU paths)."""
+"""Compute ops: integer-exact image filters (XLA + one Pallas GPU kernel)."""

@@ -3,7 +3,7 @@
 Every other pipeline stage is a local stencil (blur/sharpen/edge/median)
 or a codec transform; equalization is driven by *whole-image* statistics:
 a per-channel 256-bin histogram builds a monotone LUT that is then applied
-pointwise. That changes both halves of the TPU story:
+pointwise. That changes both halves of the device story:
 
 - **Compute**: the LUT build is integer-only and reproduces PIL's
   ``ImageOps.equalize`` bit-for-bit (the external oracle — PIL is the same
@@ -13,22 +13,15 @@ pointwise. That changes both halves of the TPU story:
   with the identity LUT when fewer than two distinct values exist or
   ``step == 0``. All arithmetic is int32 floor division, so there is no
   float tolerance anywhere — tests assert exact equality against PIL.
-- **Apply**: TPU has no vector table-lookup, so the LUT gather has two
-  exact formulations: ``jnp.take_along_axis`` (the host/XLA path) and a
-  comparison-sum (``use_cmp=True``): since the LUT is monotone
-  non-decreasing, ``lut[x] = lut[0] + sum_v (x >= v) * (lut[v]-lut[v-1])``
-  — int32 compare-multiply-reduce over the 255 thresholds, fused by XLA
-  into one HBM pass (VPU work in registers, like the histogram),
-  bit-identical to the gather. A dot/einsum spelling of the same sum
-  was rejected: MXU operands materialize, a 255x HBM blowup for a
-  bandwidth-bound matvec.
+- **Apply**: one ``jnp.take_along_axis`` gather per pixel through the
+  plane's LUT (:func:`apply_lut`).
 - **Sharding**: there is no halo — a row-sharded image needs a *global*
   histogram, so the SPMD pattern is ``lax.psum`` of per-shard partial
   histograms, not ``ppermute`` halo exchange (see
   :func:`hipe_tpu.parallel.row_split.make_equalize_row_split_fn`).
 
 The reference engine has no counterpart (its one kernel is the 3x3 blur,
-`/root/reference/gaussian_kernel.cl:19-72`); this is a beyond-parity
+`gaussian_kernel.cl:19-72`); this is a beyond-parity
 extension exercising the op class the stencil family cannot express.
 """
 
@@ -44,8 +37,8 @@ import numpy as np
 def histogram_planes(planes: jax.Array) -> jax.Array:
     """Per-plane 256-bin histograms: (N, H, W) uint8 -> (N, 256) int32.
 
-    A broadcast-compare-reduce (XLA fuses it into a streaming reduction;
-    a scatter-add would serialize on TPU).
+    A broadcast-compare-reduce (XLA fuses it into a streaming
+    reduction instead of a contended scatter-add).
     """
     n = planes.shape[0]
     x = planes.reshape(n, -1)
@@ -86,31 +79,6 @@ def apply_lut(planes: jax.Array, lut: jax.Array) -> jax.Array:
     return jnp.take_along_axis(lut, flat, axis=1).reshape(planes.shape)
 
 
-def apply_lut_cmp(planes: jax.Array, lut: jax.Array) -> jax.Array:
-    """Comparison-sum formulation: lut[x] = lut[0] + sum_v (x >= v)*d_v.
-
-    Because the LUT is monotone non-decreasing, the gather rewrites as a
-    reduction over the 255 thresholds with the LUT's difference vector —
-    int32 throughout, trivially exact, bit-identical to
-    :func:`apply_lut`. Expressed as elementwise-compare * diff -> reduce
-    (NOT a dot): XLA fuses the broadcast compare into the reduction the
-    same way :func:`histogram_planes` fuses, so the (N, P, 255)
-    intermediate never materializes — one HBM pass, ~255 VPU ops/pixel
-    in registers. (A dot/einsum spelling of the same sum would
-    materialize the comparison matrix as an MXU operand: a 255x HBM
-    blowup that OOMs at streaming scale — matvec rides bandwidth, not
-    the systolic array, so the MXU buys nothing here.)
-    """
-    n = planes.shape[0]
-    x = planes.reshape(n, -1)
-    d = (lut[:, 1:].astype(jnp.int32) - lut[:, :-1].astype(jnp.int32))
-    thresh = jnp.arange(1, 256, dtype=jnp.uint8)
-    ge = x[:, :, None] >= thresh  # fused into the reduce, never in HBM
-    acc = jnp.sum(jnp.where(ge, d[:, None, :], 0), axis=-1)
-    out = lut[:, :1].astype(jnp.int32) + acc
-    return out.astype(jnp.uint8).reshape(planes.shape)
-
-
 def _rows_via_planar(planar_fn, rows: jax.Array, channels: int,
                      **kw) -> jax.Array:
     """(B, H, W*C) rows -> per-channel planes -> planar_fn -> rows.
@@ -137,22 +105,21 @@ def _nhwc_via_rows(rows_fn, x: jax.Array, **kw) -> jax.Array:
     return out.reshape(*lead, h, w, c)
 
 
-def equalize_planar(planes: jax.Array, *, use_cmp: bool = False) -> jax.Array:
+def equalize_planar(planes: jax.Array) -> jax.Array:
     """(N, H, W) uint8 -> (N, H, W) uint8, each plane equalized alone."""
     hist = histogram_planes(planes)
     lut = equalize_lut(hist, planes.shape[1] * planes.shape[2])
-    return (apply_lut_cmp if use_cmp else apply_lut)(planes, lut)
+    return apply_lut(planes, lut)
 
 
-def equalize_rows(rows: jax.Array, channels: int, *,
-                  use_cmp: bool = False) -> jax.Array:
+def equalize_rows(rows: jax.Array, channels: int) -> jax.Array:
     """Interleaved rows (B, H, W*C) uint8, per-channel equalization."""
-    return _rows_via_planar(equalize_planar, rows, channels, use_cmp=use_cmp)
+    return _rows_via_planar(equalize_planar, rows, channels)
 
 
-def equalize_nhwc(x: jax.Array, *, use_cmp: bool = False) -> jax.Array:
+def equalize_nhwc(x: jax.Array) -> jax.Array:
     """(..., H, W, C) uint8 -> same shape, per-channel equalization."""
-    return _nhwc_via_rows(equalize_rows, x, use_cmp=use_cmp)
+    return _nhwc_via_rows(equalize_rows, x)
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +130,7 @@ def equalize_nhwc(x: jax.Array, *, use_cmp: bool = False) -> jax.Array:
 # diverges from the exact rational floor ((i-lo)*255)//(hi-lo) — e.g.
 # lo=26, hi=33: pixel 33 maps to 254, not 255, because fl(255/7) < 255/7 —
 # so bit-exactness with PIL requires reproducing the float64 arithmetic.
-# TPUs have no fp64; instead the full LUT cube over every (lo, hi) pair is
+# Rather than rely on device fp64, the full LUT cube over every (lo, hi) pair is
 # precomputed host-side in float64 (256*256 rows x 256 entries, 16 MB
 # uint8, cached) and the in-graph op just gathers row (lo, hi) after a
 # min/max reduction. Sharded execution needs lax.pmin/pmax of the local
@@ -250,7 +217,6 @@ def autocontrast_extrema(hist: jax.Array,
 
 
 def autocontrast_planar(planes: jax.Array, channels: int = 3, *, cutoff=0,
-                        use_cmp: bool = False,
                         preserve_tone: bool = False) -> jax.Array:
     """(N, H, W) uint8 -> same, contrast-stretched.
 
@@ -279,7 +245,7 @@ def autocontrast_planar(planes: jax.Array, channels: int = 3, *, cutoff=0,
             lo, hi = autocontrast_extrema(histogram_planes(l), (c0, c1))
         lut = autocontrast_lut(lo, hi)
         grouped = planes.reshape(b, channels * h * w)
-        out = (apply_lut_cmp if use_cmp else apply_lut)(grouped, lut)
+        out = apply_lut(grouped, lut)
         return out.reshape(planes.shape)
     n = planes.shape[0]
     flat = planes.reshape(n, -1)
@@ -288,26 +254,24 @@ def autocontrast_planar(planes: jax.Array, channels: int = 3, *, cutoff=0,
     else:
         lo, hi = autocontrast_extrema(histogram_planes(planes), (c0, c1))
     lut = autocontrast_lut(lo, hi)
-    return (apply_lut_cmp if use_cmp else apply_lut)(planes, lut)
+    return apply_lut(planes, lut)
 
 
 def autocontrast_rows(rows: jax.Array, channels: int, *, cutoff=0,
-                      use_cmp: bool = False,
                       preserve_tone: bool = False) -> jax.Array:
     """Interleaved rows (B, H, W*C) uint8 autocontrast."""
     return _rows_via_planar(
         lambda planes, **kw: autocontrast_planar(planes, channels, **kw),
-        rows, channels, cutoff=cutoff, use_cmp=use_cmp,
+        rows, channels, cutoff=cutoff,
         preserve_tone=preserve_tone,
     )
 
 
 def autocontrast_nhwc(x: jax.Array, *, cutoff=0,
-                      use_cmp: bool = False,
                       preserve_tone: bool = False) -> jax.Array:
     """(..., H, W, C) uint8 -> same shape autocontrast."""
     return _nhwc_via_rows(autocontrast_rows, x, cutoff=cutoff,
-                          use_cmp=use_cmp, preserve_tone=preserve_tone)
+                          preserve_tone=preserve_tone)
 
 
 def autocontrast_oracle(img: np.ndarray, cutoff=0,
@@ -408,8 +372,8 @@ def equalize_oracle(img: np.ndarray) -> np.ndarray:
 # fp32 ``mean_i + factor*(px - mean_i)`` with a truncating uint8 store
 # (probed: trunc-fp32 matches PIL everywhere; round/half-up don't; the L
 # conversion is Pillow's fixed-point (19595 R + 38470 G + 7471 B + 0x8000)
-# >> 16). TPUs have no fp64/fp32 guarantees worth relying on for the blend,
-# so like autocontrast the full (mean, value) LUT cube per factor is built
+# >> 16). Rather than rely on device float semantics for the blend, like
+# autocontrast the full (mean, value) LUT cube per factor is built
 # host-side in fp32-emulating NumPy (256x256 uint8 = 64 KB, lru-cached) and
 # the in-graph op is: luma -> exact round-half mean -> cube row gather ->
 # LUT apply. The mean uses the integer identity int(S/N + 0.5) ==
@@ -486,7 +450,7 @@ def luma_mean_round_half(hist: jax.Array, npix: int) -> jax.Array:
 
 
 def contrast_planar(planes: jax.Array, channels: int = 3, *,
-                    factor: float = 1.0, use_cmp: bool = False) -> jax.Array:
+                    factor: float = 1.0) -> jax.Array:
     """(B*C, H, W) uint8 (plane index = b*C + c) -> same, per image.
 
     Unlike equalize/autocontrast (per-channel statistics), the contrast
@@ -502,23 +466,22 @@ def contrast_planar(planes: jax.Array, channels: int = 3, *,
     mean_i = luma_mean_round_half(hist, h * w)
     lut = contrast_lut(mean_i, factor)
     grouped = planes.reshape(b, channels * h * w)
-    out = (apply_lut_cmp if use_cmp else apply_lut)(grouped, lut)
+    out = apply_lut(grouped, lut)
     return out.reshape(planes.shape)
 
 
-def contrast_rows(rows: jax.Array, channels: int, *, factor: float = 1.0,
-                  use_cmp: bool = False) -> jax.Array:
+def contrast_rows(rows: jax.Array, channels: int, *,
+                  factor: float = 1.0) -> jax.Array:
     """Interleaved rows (B, H, W*C) uint8, per-image contrast."""
     return _rows_via_planar(
         lambda planes, **kw: contrast_planar(planes, channels, **kw),
-        rows, channels, factor=factor, use_cmp=use_cmp,
+        rows, channels, factor=factor,
     )
 
 
-def contrast_nhwc(x: jax.Array, *, factor: float = 1.0,
-                  use_cmp: bool = False) -> jax.Array:
+def contrast_nhwc(x: jax.Array, *, factor: float = 1.0) -> jax.Array:
     """(..., H, W, C) uint8 -> same shape, per-image contrast."""
-    return _nhwc_via_rows(contrast_rows, x, factor=factor, use_cmp=use_cmp)
+    return _nhwc_via_rows(contrast_rows, x, factor=factor)
 
 
 def contrast_oracle(img: np.ndarray, factor: float = 1.0) -> np.ndarray:
@@ -547,7 +510,7 @@ def contrast_oracle(img: np.ndarray, factor: float = 1.0) -> np.ndarray:
 # the image's own Pillow luma replicated across channels, blended per PIXEL:
 # out_c = trunc(fp32(l + factor*(c - l))). Unlike contrast there is no
 # image-wide statistic and no LUT — the fp32 blend is emulated directly
-# in-graph (XLA/TPU f32 multiply-add is IEEE round-to-nearest like PIL's C,
+# in-graph (XLA's f32 multiply-add is IEEE round-to-nearest like PIL's C,
 # and the truncating store matches; probed bit-exact across factors).
 # Cross-channel (needs the pixel's full RGB), so it lives in this module's
 # channels-aware op family rather than the channel-independent FILTERS.
@@ -563,12 +526,8 @@ def _color_product_table(factor: float) -> np.ndarray:
 
 
 def color_planar(planes: jax.Array, channels: int = 3, *,
-                 factor: float = 1.0, use_cmp: bool = False) -> jax.Array:
-    """(B*C, H, W) uint8 (plane index = b*C + c) -> same, per pixel.
-
-    ``use_cmp`` is accepted for interface uniformity and ignored (there
-    is no LUT apply to choose a formulation for).
-    """
+                 factor: float = 1.0) -> jax.Array:
+    """(B*C, H, W) uint8 (plane index = b*C + c) -> same, per pixel."""
     n, h, w = planes.shape
     assert n % channels == 0, (n, channels)
     if channels == 1:
@@ -593,19 +552,18 @@ def color_planar(planes: jax.Array, channels: int = 3, *,
     return out.reshape(planes.shape)
 
 
-def color_rows(rows: jax.Array, channels: int, *, factor: float = 1.0,
-               use_cmp: bool = False) -> jax.Array:
+def color_rows(rows: jax.Array, channels: int, *,
+               factor: float = 1.0) -> jax.Array:
     """Interleaved rows (B, H, W*C) uint8, per-pixel saturation blend."""
     return _rows_via_planar(
         lambda planes, **kw: color_planar(planes, channels, **kw),
-        rows, channels, factor=factor, use_cmp=use_cmp,
+        rows, channels, factor=factor,
     )
 
 
-def color_nhwc(x: jax.Array, *, factor: float = 1.0,
-               use_cmp: bool = False) -> jax.Array:
+def color_nhwc(x: jax.Array, *, factor: float = 1.0) -> jax.Array:
     """(..., H, W, C) uint8 -> same shape, per-pixel saturation blend."""
-    return _nhwc_via_rows(color_rows, x, factor=factor, use_cmp=use_cmp)
+    return _nhwc_via_rows(color_rows, x, factor=factor)
 
 
 def color_oracle(img: np.ndarray, factor: float = 1.0) -> np.ndarray:
@@ -647,7 +605,7 @@ def _sharpness_blend(x_i32: jax.Array, sm_i32: jax.Array,
 
 
 def sharpness_planar(planes: jax.Array, channels: int = 3, *,
-                     factor: float = 1.0, use_cmp: bool = False) -> jax.Array:
+                     factor: float = 1.0) -> jax.Array:
     """(N, H, W) uint8 -> same; channel-independent, so any plane layout."""
     from hipe_tpu.ops import blur as xblur
 
@@ -661,19 +619,18 @@ def sharpness_planar(planes: jax.Array, channels: int = 3, *,
     return jnp.where(border, planes, out)
 
 
-def sharpness_rows(rows: jax.Array, channels: int, *, factor: float = 1.0,
-                   use_cmp: bool = False) -> jax.Array:
+def sharpness_rows(rows: jax.Array, channels: int, *,
+                   factor: float = 1.0) -> jax.Array:
     """Interleaved rows (B, H, W*C) uint8, per-channel sharpness."""
     return _rows_via_planar(
         lambda planes, **kw: sharpness_planar(planes, channels, **kw),
-        rows, channels, factor=factor, use_cmp=use_cmp,
+        rows, channels, factor=factor,
     )
 
 
-def sharpness_nhwc(x: jax.Array, *, factor: float = 1.0,
-                   use_cmp: bool = False) -> jax.Array:
+def sharpness_nhwc(x: jax.Array, *, factor: float = 1.0) -> jax.Array:
     """(..., H, W, C) uint8 -> same shape, PIL sharpness."""
-    return _nhwc_via_rows(sharpness_rows, x, factor=factor, use_cmp=use_cmp)
+    return _nhwc_via_rows(sharpness_rows, x, factor=factor)
 
 
 def sharpness_oracle(img: np.ndarray, factor: float = 1.0) -> np.ndarray:
@@ -712,15 +669,27 @@ def colorize_lut(black, white, mid=None, blackpoint: int = 0,
                  whitepoint: int = 255, midpoint: int = 127) -> np.ndarray:
     """(3, 256) uint8 wedge LUTs — PIL ``ImageOps.colorize`` bit-exact.
 
-    Colors are RGB triples or any string PIL's ``ImageColor`` parses
-    ("red", "#rrggbb", ...). Integer arithmetic identical to Pillow's
-    list construction (floor-division interpolation over the point
-    ranges), verified against PIL in the tests.
+    Colors are RGB triples, ``#rgb`` / ``#rrggbb`` strings, or color
+    names (resolved through PIL's ``ImageColor`` table, imported only for
+    names). Integer arithmetic identical to Pillow's list construction
+    (floor-division interpolation over the point ranges), verified
+    against PIL in the tests.
     """
-    from PIL import ImageColor
 
     def rgb(c):
-        return ImageColor.getrgb(c) if isinstance(c, str) else tuple(c)
+        if not isinstance(c, str):
+            return tuple(c)
+        hx = c[1:] if c.startswith("#") else None
+        if hx is not None and len(hx) in (3, 6):
+            if len(hx) == 3:
+                hx = "".join(ch * 2 for ch in hx)
+            try:
+                return tuple(int(hx[i:i + 2], 16) for i in (0, 2, 4))
+            except ValueError:
+                pass
+        from PIL import ImageColor
+
+        return ImageColor.getrgb(c)
 
     kb, kw = rgb(black), rgb(white)
     km = rgb(mid) if mid is not None else None
@@ -769,14 +738,14 @@ def colorize_oracle(gray: np.ndarray, lut3: np.ndarray) -> np.ndarray:
 #   ties break to the LOWEST pixel value;
 # - a mode that occurs <= 2 times is ignored: the original pixel wins.
 #
-# TPU formulation: no histograms — lift the window values to int32 with a
+# Device formulation: no histograms — lift the window values to int32 with a
 # -1 sentinel in the out-of-image positions (sentinels match only each
 # other and are never candidates), count each window value's occurrences
-# with a pairwise equality-sum (J*(J-1)/2 fused VPU compares), and select
+# with a pairwise equality-sum (J*(J-1)/2 fused compares), and select
 # via one packed key max: key = count*256 + (255 - value) for valid
 # positions, 0 for sentinels. The max key's count and value decode with
 # a shift/mask; count > 2 gates against the center pixel. Everything is
-# int32 compare/add/max — one fused elementwise graph, one HBM pass.
+# int32 compare/add/max — one fused elementwise graph, one memory pass.
 #
 # The truncated window makes borders GLOBAL-position-dependent (same
 # wrinkle as sharpness's border-copy rule), so mode lives in this family:
@@ -824,14 +793,12 @@ def _mode_core_i32(xp: jax.Array, size: int) -> jax.Array:
     return jnp.where(cnt > 2, val, center).astype(jnp.uint8)
 
 
-def mode_planar(planes: jax.Array, channels: int = 3, *, size: int = 3,
-                use_cmp: bool = False) -> jax.Array:
+def mode_planar(planes: jax.Array, channels: int = 3, *,
+                size: int = 3) -> jax.Array:
     """(N, H, W) uint8 -> same; PIL ``ImageFilter.ModeFilter(size)``.
 
     Channel-independent (PIL filters each band alone), so any plane
     layout works; ``channels`` is accepted for family-signature symmetry.
-    ``use_cmp`` is accepted and ignored — the op is already a single
-    fused comparison graph; there is no separate gather formulation.
     """
     assert planes.dtype == jnp.uint8
     if size not in (3, 5):
@@ -843,34 +810,30 @@ def mode_planar(planes: jax.Array, channels: int = 3, *, size: int = 3,
     return _mode_core_i32(xp, size)
 
 
-def mode_rows(rows: jax.Array, channels: int, *, size: int = 3,
-              use_cmp: bool = False) -> jax.Array:
+def mode_rows(rows: jax.Array, channels: int, *, size: int = 3) -> jax.Array:
     """Interleaved rows (B, H, W*C) uint8, per-channel mode filter."""
     return _rows_via_planar(
         lambda planes, **kw: mode_planar(planes, channels, **kw),
-        rows, channels, size=size, use_cmp=use_cmp,
+        rows, channels, size=size,
     )
 
 
-def mode_nhwc(x: jax.Array, *, size: int = 3,
-              use_cmp: bool = False) -> jax.Array:
+def mode_nhwc(x: jax.Array, *, size: int = 3) -> jax.Array:
     """(..., H, W, C) uint8 -> same shape, PIL ModeFilter."""
-    return _nhwc_via_rows(mode_rows, x, size=size, use_cmp=use_cmp)
+    return _nhwc_via_rows(mode_rows, x, size=size)
 
 
-def mode5_planar(planes: jax.Array, channels: int = 3, *,
-                 use_cmp: bool = False) -> jax.Array:
+def mode5_planar(planes: jax.Array, channels: int = 3) -> jax.Array:
     """PIL ``ImageFilter.ModeFilter(5)`` on planes."""
-    return mode_planar(planes, channels, size=5, use_cmp=use_cmp)
+    return mode_planar(planes, channels, size=5)
 
 
-def mode5_rows(rows: jax.Array, channels: int, *,
-               use_cmp: bool = False) -> jax.Array:
-    return mode_rows(rows, channels, size=5, use_cmp=use_cmp)
+def mode5_rows(rows: jax.Array, channels: int) -> jax.Array:
+    return mode_rows(rows, channels, size=5)
 
 
-def mode5_nhwc(x: jax.Array, *, use_cmp: bool = False) -> jax.Array:
-    return mode_nhwc(x, size=5, use_cmp=use_cmp)
+def mode5_nhwc(x: jax.Array) -> jax.Array:
+    return mode_nhwc(x, size=5)
 
 
 def mode_oracle(img: np.ndarray, size: int = 3) -> np.ndarray:

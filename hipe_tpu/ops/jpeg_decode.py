@@ -1,14 +1,14 @@
 """Device-side JPEG decode: dequantize + IDCT + upsample + color convert.
 
-The TPU-native decode split. JPEG decoding is two very different halves:
+The device decode split. JPEG decoding is two very different halves:
 
 - **Entropy decode** (Huffman/arithmetic) is serial and branchy — it stays on
   the host (`io_/jpeg.py:read_coefficients`, backed by libjpeg's
   ``jpeg_read_coefficients``), exactly as the reference keeps its decode on
-  the host CPU (CImg ``load_jpeg``, `/root/reference/CImg/CImg.h:51770`,
+  the host CPU (CImg ``load_jpeg``, `CImg/CImg.h:51770`,
   used by `heterogeneous_blur.c:106-137`).
 - **Dequantize + IDCT + chroma upsample + YCbCr->RGB** is dense, regular
-  vector math — this module runs it on the TPU, batched over images.
+  vector math — this module runs it on the accelerator, batched over images.
 
 Everything here is **bit-exact against libjpeg(-turbo)'s default integer
 pipeline**: ``jpeg_idct_islow`` (jidctint.c — 13-bit fixed-point Loeffler
@@ -19,10 +19,10 @@ All arithmetic is int32 with the same rounding/shift semantics, so the
 decoded pixels equal the host codec's byte-for-byte (asserted by
 tests/test_jpeg_device.py on real encodes, including progressive).
 
-Layout is TPU-first: the 64 DCT coefficient positions become 64 separate
-``(B, Hb, Wb)`` planes (block-grid coords in the minor dims -> lanes), the
-two IDCT passes are Python-unrolled elementwise graphs over those planes
-(XLA fuses them into a handful of VPU kernels), and plane assembly is one
+Layout: the 64 DCT coefficient positions become 64 separate
+``(B, Hb, Wb)`` planes (block-grid coords in the minor dims), the two IDCT
+passes are Python-unrolled elementwise graphs over those planes (XLA fuses
+them into a handful of elementwise kernels), and plane assembly is one
 relayout. No gathers, no dynamic shapes, no per-block loops.
 """
 
@@ -154,16 +154,15 @@ def _idct_1d(d: list[jnp.ndarray], final: bool) -> list[jnp.ndarray]:
 def _dequant_planes(coefs: jnp.ndarray, qtable: np.ndarray) -> list:
     """(..., Hb, Wb, 64) coefficients -> 64 dequantized (..., Hb*Wb) planes.
 
-    TPU layout strategy: one explicit device transpose turns the input into
-    64 coefficient planes with the whole block grid flattened into the lane
-    axis, so every IDCT op runs at full VPU width (a (..., Hb, Wb) plane
-    would use only Wb of 128 lanes).
+    Layout: one explicit device transpose turns the input into 64
+    coefficient planes with the whole block grid flattened into the minor
+    axis, so every IDCT op is one long contiguous elementwise pass.
     """
     q = np.asarray(qtable, dtype=np.int32)
     bshape = coefs.shape[:-3]
     n = coefs.shape[-3] * coefs.shape[-2]
     # Relayout in the narrow dtype; widen to int32 only at the dequant
-    # multiply (halves the transpose's HBM traffic).
+    # multiply (halves the transpose's memory traffic).
     t = jnp.swapaxes(coefs.reshape(*bshape, n, 64), -1, -2)
     return [t[..., k, :].astype(jnp.int32) * int(q[k]) for k in range(64)]
 
@@ -833,8 +832,6 @@ def decode_planes(
     comp_coefs: list[jnp.ndarray],
     qtables: list[np.ndarray],
     layout: str = "hwc",
-    pallas_idct: bool = False,
-    interpret: bool = False,
 ) -> jnp.ndarray:
     """Finish decoding on device: coefficients -> decoded uint8 pixels.
 
@@ -843,35 +840,20 @@ def decode_planes(
     Leading batch dims broadcast through every stage.
 
     layout: "hwc" -> (..., H, W, C); "rows" -> (..., H, W*C), the
-    framework's canonical interleaved-rows device layout (4-D NHWC uint8
-    tiles pathologically on TPU — see utils/images.py). The two are a free
-    reshape of one another; on-device consumers should take "rows".
-
-    pallas_idct: run dequantize + both IDCT passes in one fused Pallas
-    kernel per component (ops/pallas_dct.py) — every pass intermediate
-    stays in VMEM instead of round-tripping HBM as int32 plane sets.
-    Bit-identical to the XLA path (same traced arithmetic).
+    framework's canonical interleaved-rows device layout. The two are a
+    free reshape of one another; on-device consumers take "rows".
     """
     if not supported(geo):
         raise ValueError(f"unsupported sampling geometry: {geo.comps}")
     if geo.ncomps == 1:
-        if pallas_idct:
-            from hipe_tpu.ops.pallas_dct import dequant_idct_planes_pallas
-
-            hb, wb = comp_coefs[0].shape[-3], comp_coefs[0].shape[-2]
-            planes = dequant_idct_planes_pallas(
-                comp_coefs[0], qtables[0], interpret=interpret
-            )
-            y = _grid_from_planes(planes, hb, wb, range(8), range(8))
-        else:
-            y = idct8x8_islow(comp_coefs[0], qtables[0])
+        y = idct8x8_islow(comp_coefs[0], qtables[0])
         y = y[..., : geo.height, : geo.width]
         return y if layout == "rows" else y[..., None]
     if geo.ncomps == 4:
         # Adobe CMYK / YCCK: rare streams, so correctness path — the
         # concatenated IDCT graph over all four components, then the
         # generic per-component upsample and the jdcolor transform
-        # (_cmyk_rows). pallas_idct is ignored here (XLA graph only).
+        # (_cmyk_rows).
         dqs = [_dequant_planes(comp_coefs[ci], qtables[ci])
                for ci in range(4)]
         ns = [comp_coefs[ci].shape[-3] * comp_coefs[ci].shape[-2]
@@ -894,34 +876,25 @@ def decode_planes(
         if layout == "rows":
             return rows
         return rows.reshape(*rows.shape[:-1], geo.width, 4)
-    if pallas_idct:
-        from hipe_tpu.ops.pallas_dct import dequant_idct_planes_pallas
-
-        y_planes, cb_planes, cr_planes = (
-            dequant_idct_planes_pallas(comp_coefs[ci], qtables[ci],
-                                       interpret=interpret)
-            for ci in range(3)
-        )
-    else:
-        # All three components' IDCTs run as ONE unrolled plane graph: the
-        # dequantized planes are concatenated along the flattened block-grid
-        # (lane) axis, so the per-op shapes are 1.5x larger and the op count
-        # is 1/3rd of three separate IDCTs.
-        dqs = [
-            _dequant_planes(comp_coefs[ci], qtables[ci]) for ci in range(3)
-        ]
-        ns = [
-            comp_coefs[ci].shape[-3] * comp_coefs[ci].shape[-2]
-            for ci in range(3)
-        ]
-        cat = [
-            jnp.concatenate([dqs[0][k], dqs[1][k], dqs[2][k]], axis=-1)
-            for k in range(64)
-        ]
-        out = _idct_planes_core(cat)
-        y_planes = [o[..., : ns[0]] for o in out]
-        cb_planes = [o[..., ns[0] : ns[0] + ns[1]] for o in out]
-        cr_planes = [o[..., ns[0] + ns[1] :] for o in out]
+    # All three components' IDCTs run as ONE unrolled plane graph: the
+    # dequantized planes are concatenated along the flattened block-grid
+    # (lane) axis, so the per-op shapes are 1.5x larger and the op count
+    # is 1/3rd of three separate IDCTs.
+    dqs = [
+        _dequant_planes(comp_coefs[ci], qtables[ci]) for ci in range(3)
+    ]
+    ns = [
+        comp_coefs[ci].shape[-3] * comp_coefs[ci].shape[-2]
+        for ci in range(3)
+    ]
+    cat = [
+        jnp.concatenate([dqs[0][k], dqs[1][k], dqs[2][k]], axis=-1)
+        for k in range(64)
+    ]
+    out = _idct_planes_core(cat)
+    y_planes = [o[..., : ns[0]] for o in out]
+    cb_planes = [o[..., ns[0] : ns[0] + ns[1]] for o in out]
+    cr_planes = [o[..., ns[0] + ns[1] :] for o in out]
     rows = _decode_rgb_rows_from_planes(geo, y_planes, cb_planes, cr_planes)
     if layout == "rows":
         return rows

@@ -1,6 +1,6 @@
 """Device-side JPEG encode: color convert + downsample + fDCT + quantize.
 
-The encode mirror of ops/jpeg_decode.py, completing the TPU-side codec
+The encode mirror of ops/jpeg_decode.py, completing the device-side codec
 loop. The device computes everything numeric — fixed-point RGB->YCbCr
 (jccolor.c rgb_ycc_convert tables), iMCU edge padding, chroma downsampling
 (jcsample.c h2v2/h2v1_downsample with the alternating rounding bias),
@@ -16,11 +16,11 @@ the native writer reproduces the direct encoder's MCU dummy-block
 semantics.
 
 The reference keeps its encode on host via CImg save_jpeg
-(`/root/reference/split_image_blur.c:40-56`); here a serving pipeline can
+(`split_image_blur.c:40-56`); here a serving pipeline can
 run decode -> filter -> encode with only entropy coding on the host.
 
 Layout strategy matches the decoder: 64 block-position planes with the
-flattened block grid in the lane axis; the two DCT passes are unrolled
+flattened block grid in the minor axis; the two DCT passes are unrolled
 elementwise graphs; plane extraction/assembly is stack/reshape only.
 """
 
@@ -234,8 +234,7 @@ def _fdct_planes_core(planes: list) -> list:
     """64 level-shifted int32 planes -> 64 unquantized fDCT planes.
 
     Row pass (jcfdctint pass 1: walks columns within each row), then
-    column pass — the mirror of jpeg_decode._idct_planes_core, shared by
-    the XLA path and the Pallas kernel so the two cannot diverge.
+    column pass — the mirror of jpeg_decode._idct_planes_core.
     """
     ws: list = [None] * 64
     for r in range(8):
@@ -250,26 +249,14 @@ def _fdct_planes_core(planes: list) -> list:
     return out
 
 
-def fdct_quantize(plane: jnp.ndarray, qtable: np.ndarray,
-                  pallas: bool = False,
-                  interpret: bool = False) -> jnp.ndarray:
+def fdct_quantize(plane: jnp.ndarray, qtable: np.ndarray) -> jnp.ndarray:
     """Sample plane -> quantized DCT coefficients, bit-exact vs libjpeg.
 
     plane: (..., hb*8, wb*8) int32 samples in [0, 255] (block-multiple
     dims; caller pads). Returns (..., hb, wb, 64) int16 natural-order
     quantized coefficients — exactly what jpeg_read_coefficients would
     report for these pixels.
-
-    pallas: run level-shift + both fDCT passes + quantize in one fused
-    Pallas kernel (ops/pallas_dct.py), VMEM-resident intermediates;
-    bit-identical output.
     """
-    if pallas:
-        from hipe_tpu.ops.pallas_dct import fdct_quantize_planes_pallas
-
-        planes_u8, hb, wb = _planes_from_grid(plane.astype(jnp.uint8))
-        return fdct_quantize_planes_pallas(planes_u8, hb, wb, qtable,
-                                           interpret=interpret)
     planes, hb, wb = _planes_from_grid(plane.astype(jnp.int32) - 128)
     out = _fdct_planes_core(planes)
     # Quantize: divisors = quantval << 3 (jcdct.c start_pass_fdctmgr),
@@ -339,15 +326,12 @@ def encode_planes(
     geo: DecodeGeometry,
     img: jnp.ndarray,
     qtables: list[np.ndarray],
-    pallas: bool = False,
-    interpret: bool = False,
 ) -> list[jnp.ndarray]:
     """Device encode: pixels -> per-component quantized coefficients.
 
     img: (..., H, W, C) uint8 (or (..., H, W) for grayscale). Returns
     [(..., Hb_i, Wb_i, 64) int16] matching libjpeg's own coefficients for
-    the same pixels/quality/subsampling bit-for-bit. pallas: fused
-    fDCT+quantize kernel (see fdct_quantize).
+    the same pixels/quality/subsampling bit-for-bit.
     """
     hgt, wid = geo.height, geo.width
     if geo.ncomps == 1:
@@ -361,7 +345,7 @@ def encode_planes(
             raise ValueError(f"bad grayscale shape {img.shape}")
         _, _, wb, hb = geo.comps[0]
         yp = _pad_edge(y.astype(jnp.int32), hb * 8, wb * 8)
-        return [fdct_quantize(yp, qtables[0], pallas, interpret)]
+        return [fdct_quantize(yp, qtables[0])]
     hs, vs = geo.max_h, geo.max_v
     y, cb, cr = rgb_to_ycc(img)
     _, _, ywb, yhb = geo.comps[0]
@@ -381,7 +365,7 @@ def encode_planes(
     group_h = vs * -(-hgt // vs)
     y = _pad_edge(y, yhb * 8, imcu_w)
     outs = [
-        fdct_quantize(y[..., :, : ywb * 8], qtables[0], pallas, interpret)
+        fdct_quantize(y[..., :, : ywb * 8], qtables[0])
     ]
     for ci, plane in ((1, cb), (2, cr)):
         h_i, v_i, wb_i, hb_i = geo.comps[ci]
@@ -398,7 +382,7 @@ def encode_planes(
         elif (h_e, v_e) != (1, 1):
             plane = downsample_int(plane, h_e, v_e)
         plane = _pad_edge(plane, hb_i * 8, wb_i * 8)
-        outs.append(fdct_quantize(plane, qtables[ci], pallas, interpret))
+        outs.append(fdct_quantize(plane, qtables[ci]))
     return outs
 
 
@@ -420,7 +404,7 @@ def encode_bytes_device(
     progressive: bool = False,
     device=None,
 ) -> bytes:
-    """Full TPU-side encode of one HWC uint8 image -> JPEG bytes.
+    """Full device-side encode of one HWC uint8 image -> JPEG bytes.
 
     Device: color/downsample/fDCT/quantize. Host: entropy encode. Output
     is byte-identical to io_.jpeg.encode_bytes_opts on the same inputs.

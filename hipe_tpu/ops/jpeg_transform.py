@@ -4,8 +4,8 @@ jpegtran (transupp.c) rotates/flips JPEGs without decoding: coefficient
 blocks are permuted on the block grid and adjusted inside each 8x8 via
 DCT symmetries, so no IDCT/fDCT rounding ever happens. Those symmetries
 are pure tensor ops — grid reversals, per-axis sign masks, 8x8
-transposes — i.e. exactly the shape of work a TPU does for free inside
-one jitted program, batchable and shardable like the rest of the codec.
+transposes — i.e. exactly the shape of work an accelerator does for free
+inside one jitted program, batchable and shardable like the rest of the codec.
 
 DCT symmetries used (for an 8x8 block B[u, v] of a sample block b[y, x]):
 - mirror horizontally (x -> 7-x):  B[u, v] -> (-1)^v  * B[u, v]

@@ -1,7 +1,7 @@
 """NumPy oracle for the reference device kernels.
 
 This module is the *semantic* oracle: it reproduces, in NumPy, the observable
-behavior of the reference OpenCL kernel (`/root/reference/gaussian_kernel.cl:19-72`):
+behavior of the reference OpenCL kernel (`gaussian_kernel.cl:19-72`):
 
 - per-pixel 3x3 convolution with fixed binomial weights {1,2,1}x{1,2,1}/16
   (`gaussian_kernel.cl:36-41`),
@@ -15,7 +15,7 @@ multiple of 2^-4 (more generally 2^-s for binomial kernels) and every input is
 a uint8, every partial sum in fp32 is exact, so the fp32-accumulate +
 truncating-cast pipeline is *bit-identical* to integer arithmetic
 ``(sum_i w_int_i * x_i) >> s``. The whole framework therefore uses integer
-kernels on TPU and this oracle verifies both formulations agree.
+kernels on the device and this oracle verifies both formulations agree.
 """
 
 from __future__ import annotations
@@ -71,7 +71,7 @@ def gaussian_blur_int_oracle(img: np.ndarray, radius: int = 1) -> np.ndarray:
     """Integer path: separable ``(colpass(rowpass(x))) >> 2*shift``.
 
     Bit-identical to :func:`gaussian_blur_float_oracle` (proved in tests);
-    this is the formulation the TPU kernels implement.
+    this is the formulation the device kernels implement.
     """
     assert img.dtype == np.uint8
     taps, shift = binomial_taps(radius)
@@ -110,7 +110,7 @@ def sobel_edge_oracle(img: np.ndarray) -> np.ndarray:
     """Sobel |gx|+|gy| edge magnitude, clamp to [0,255].
 
     Defined per-channel (channel-independent like the blur). Uses the L1
-    magnitude so the op stays integer-exact on TPU.
+    magnitude so the op stays integer-exact on every backend.
     """
     assert img.dtype == np.uint8
     H, W = img.shape[:2]
@@ -203,3 +203,29 @@ def kernel_oracle(img: np.ndarray, taps, scale: int, offset: float
     assert off2 == 2 * offset
     num = 2 * acc + int(scale) * (off2 + 1)
     return np.clip(num // (2 * int(scale)), 0, 255).astype(np.uint8)
+
+
+def _resize_axis_oracle(x: np.ndarray, n_out: int) -> np.ndarray:
+    """One bilinear pass on the LAST axis of int array x (ops/resize.py
+    contract: half-pixel mapping, Q14 weights, round-half-up >> 14)."""
+    n_in = x.shape[-1]
+    j = np.arange(n_out, dtype=np.float64)
+    src = np.clip((j + 0.5) * (n_in / n_out) - 0.5, 0.0, n_in - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    wr = np.rint((src - lo) * (1 << 14)).astype(np.int64)
+    wl = (1 << 14) - wr
+    acc = x[..., lo].astype(np.int64) * wl + x[..., hi].astype(np.int64) * wr
+    return (acc + (1 << 13)) >> 14
+
+
+def resize_bilinear_oracle(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
+    """(..., H, W, C) uint8 -> (..., oh, ow, C): per-pixel gathers, no band
+    matrices — the independent oracle for ops/resize.py."""
+    t = np.moveaxis(img, -1, -3)  # (..., C, H, W)
+    if t.shape[-1] != ow:
+        t = _resize_axis_oracle(t, ow).astype(np.uint8)
+    if t.shape[-2] != oh:
+        t = np.swapaxes(
+            _resize_axis_oracle(np.swapaxes(t, -1, -2), oh), -1, -2)
+    return np.moveaxis(t.astype(np.uint8), -3, -1)

@@ -1,12 +1,11 @@
-"""Integer-exact separable bilinear resize, formulated for the MXU.
+"""Integer-exact separable bilinear resize as two banded matmuls.
 
 The reference engine has no resize (its thumbnail analog is this repo's
 DCT-domain scaled decode and the jcsample 2x2 average); serving real
 traffic needs arbitrary output sizes. This op defines a fixed-point
-bilinear contract and implements it as two banded matmuls — the same
-design as the blur kernels' W-pass (ops/pallas_blur.py): a resize along
-one axis is a (out x in) band matrix with two taps per row, so on TPU
-both passes ride the MXU and XLA fuses the rounding shifts between them.
+bilinear contract and implements it as two banded matmuls: a resize along
+one axis is a (out x in) band matrix with two taps per row, and XLA fuses
+the rounding shifts between the two passes.
 
 Contract (this framework's own, stable and oracle-tested):
 - Half-pixel source mapping (the standard align_corners=False rule):
@@ -17,9 +16,11 @@ Contract (this framework's own, stable and oracle-tested):
   values between passes — sequential integer semantics, so the result
   is reproducible bit-for-bit on any backend.
 
-Exactness on the MXU path: products are < 2^14 * 255 < 2^22 and each
-row sums two of them, so fp32 (24-bit significand) matmuls are exact;
-the >> 14 rounding runs in int32 afterwards. The numpy oracle in
+Exactness: products are < 2^14 * 255 < 2^22 and each row sums two of
+them, so fp32 (24-bit significand) matmuls are exact — provided the dot
+really runs in fp32. A GPU may run an fp32 dot in TF32 (10-bit mantissa)
+by default, so every dot here asks for ``Precision.HIGHEST``. The >> 14
+rounding runs in int32 afterwards. The numpy oracle in
 tests/test_resize.py re-implements the contract independently.
 """
 
@@ -60,6 +61,7 @@ def _pass_matmul(x: jnp.ndarray, band: jnp.ndarray) -> jnp.ndarray:
     acc = jax.lax.dot_general(
         x.astype(jnp.float32), band,
         (((x.ndim - 1,), (0,)), ((), ())),
+        precision=jax.lax.Precision.HIGHEST,
         preferred_element_type=jnp.float32,
     )
     return (acc.astype(jnp.int32) + _HALF) >> _Q
@@ -69,8 +71,7 @@ def resize_bilinear(x: jax.Array, out_h: int, out_w: int) -> jax.Array:
     """Resize (..., H, W, C) uint8 to (..., out_h, out_w, C).
 
     Separable fixed-point bilinear (module docstring contract); both
-    axis passes are two-tap banded matmuls on the last-moved axis, so
-    under jit on TPU they lower to MXU dots.
+    axis passes are two-tap banded matmuls on the last-moved axis.
     """
     assert x.dtype == jnp.uint8 and x.ndim >= 3
     *lead, h, w, c = x.shape

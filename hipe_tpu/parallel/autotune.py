@@ -1,6 +1,6 @@
 """Measured-feedback autotuning: ratio calibration and batch-size sweeps.
 
-The reference's calibration study (`/root/reference/README.md:87-93`): run
+The reference's calibration study (`README.md:87-93`): run
 with a 50/50 split, read the recommended ratio
 (``ratio* = T_cpu/(T_cpu+T_gpu)``, `heterogeneous_blur.c:712-723`), re-run
 with it — iterated by hand across batch sizes {35..1200} to produce the

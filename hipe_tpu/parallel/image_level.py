@@ -1,11 +1,11 @@
-"""Approach 1, TPU-native: image-level (data-parallel) SPMD sharding.
+"""Approach 1: image-level (data-parallel) SPMD sharding.
 
 The reference routes whole images to one of two devices by a tunable ratio
-(`/root/reference/heterogeneous_blur.c:449-458,489-497`). On a homogeneous
-TPU mesh the ratio degenerates to an even batch-axis shard: XLA inserts zero
-communication — each chip blurs its own images. The ratio capability itself
-(asymmetric devices, measured-time feedback) lives on in the heterogeneous
-CPU+TPU executor (`hipe_tpu.runtime.engine`), exactly as the reference pairs
+(`heterogeneous_blur.c:449-458,489-497`). On a homogeneous
+device mesh the ratio degenerates to an even batch-axis shard: XLA inserts
+zero communication — each device blurs its own images. The ratio capability
+itself (asymmetric devices, measured-time feedback) lives on in the
+heterogeneous CPU+GPU executor (`hipe_tpu.runtime.engine`), exactly as the reference pairs
 a fast and a slow device.
 """
 

@@ -4,18 +4,19 @@ Reproduces the reference's partitioning formulas exactly:
 
 - image-level split: ``num_gpu = floor(batch_count * gpu_ratio)``, remaining
   images to the CPU, image i routed to CPU iff ``i < num_cpu``
-  (`/root/reference/heterogeneous_blur.c:449-458,489-497`);
+  (`heterogeneous_blur.c:449-458,489-497`);
 - row split: ``split_row = floor(H * (1 - gpu_ratio))`` clamped to
   ``[halo, H - halo]``; CPU takes rows ``[0, split_row)`` plus `halo` halo
   rows below, GPU takes ``[split_row, H)`` plus `halo` halo rows above
-  (`/root/reference/split_image_blur.c:144-173`);
+  (`split_image_blur.c:144-173`);
 - ratio recommendation: ``ratio* = T_cpu / (T_cpu + T_gpu)`` per work unit
   (`heterogeneous_blur.c:715`, `split_image_blur.c:714`, `README.md:93`);
 - CLI validation semantics: out-of-range values warn and fall back to
   defaults (`heterogeneous_blur.c:72-83`).
 
-"GPU" in the reference is the fast accelerator; in this framework that role
-is played by the TPU, so `gpu_ratio` == fraction of work sent to the TPU.
+"GPU" in the reference is the fast accelerator; here that role is played
+by the JAX accelerator device, so `gpu_ratio` == fraction of work sent to
+it.
 """
 
 from __future__ import annotations
@@ -137,7 +138,7 @@ def row_split(height: int, gpu_ratio: float, halo: int = 1) -> RowSplit:
 def even_row_shards(height: int, n: int, halo: int = 1) -> list[tuple[int, int]]:
     """N-way generalization: output row ranges of an even H split.
 
-    The reference splits two ways by ratio; a homogeneous TPU mesh splits
+    The reference splits two ways by ratio; a homogeneous device mesh splits
     evenly (SURVEY.md §2.3). Height must divide evenly for SPMD sharding.
     """
     assert height % n == 0, (height, n)

@@ -1,10 +1,10 @@
-"""Approach 2, TPU-native: H-axis SPMD sharding with ICI halo exchange.
+"""Approach 2: H-axis SPMD sharding with device-to-device halo exchange.
 
 The reference splits every image's rows between two devices with a 1-row halo
-realized as overlapping host-buffer reads (`/root/reference/
-split_image_blur.c:144-173,516,537`); seam exactness comes from computing the
-halo rows on both devices and discarding them at read-back. On TPU the halo
-moves over ICI instead: each shard `lax.ppermute`s its boundary rows to its
+realized as overlapping host-buffer reads
+(`split_image_blur.c:144-173,516,537`); seam exactness comes from computing
+the halo rows on both devices and discarding them at read-back. On a device
+mesh the halo moves between devices instead (NVLink on a GPU host): each shard `lax.ppermute`s its boundary rows to its
 neighbors inside one jitted SPMD program, blurs its halo-padded slab in
 "valid" mode, and keeps exactly its own output rows — bit-identical to the
 unsplit blur for every split point (the reference's seam-correctness
@@ -31,7 +31,7 @@ def exchange_halo(
     axis_name: str,
     h_axis: int = 1,
 ) -> jax.Array:
-    """Halo-pad a local row shard: neighbors' rows over ICI, edge clamp at ends.
+    """Halo-pad a local row shard: neighbors' rows by ppermute, edge clamp at ends.
 
     `x` is the per-device block of an H-sharded array (inside shard_map).
     Returns `x` extended by `radius` rows on each side of `h_axis`:
@@ -139,14 +139,13 @@ def make_row_split_fn(
     """Build the jitted row-split pipeline over `mesh`.
 
     Input/output: (B, H, W, C) uint8 — or, with `channels=C`, interleaved
-    rows (B, H, W*C), the recommended TPU device layout (4-D NHWC uint8
-    tiles pad C to 128 lanes on TPU) — H sharded over `axis_name` (and B
+    rows (B, H, W*C), the channels-last device layout — H sharded over `axis_name` (and B
     over `batch_axis` if given: DP x SP on a 2-D mesh). `names` is a filter
     chain from :data:`hipe_tpu.ops.blur.FILTERS`; alternatively pass
     `local_fn` together with its `radius`:
 
     - ``local_clamp=False`` (default): `local_fn` is a valid-mode
-      halo-consuming fn (rows in == rows out + 2*radius, e.g. a Pallas
+      halo-consuming fn (rows in == rows out + 2*radius, e.g. the planar
       kernel with ``h_pad=False``). Exact for single filters; multi-stage
       chains must NOT use this mode (per-stage clamp at global image edges
       cannot be reproduced from a replicated-edge halo — use
@@ -349,7 +348,6 @@ def _make_stats_row_split_fn(
     axis_name: str,
     batch_axis: str | None,
     channels: int | None,
-    use_cmp: bool,
 ) -> Callable[[jax.Array], jax.Array]:
     """Shared shard scaffolding for the global-statistics pipelines.
 
@@ -372,7 +370,7 @@ def _make_stats_row_split_fn(
         c = x.shape[-1]
         planes = x.transpose(0, 3, 1, 2).reshape(b * c, hh, w)
         lut = plane_lut_fn(planes, c)
-        out = (eq.apply_lut_cmp if use_cmp else eq.apply_lut)(planes, lut)
+        out = eq.apply_lut(planes, lut)
         out = out.reshape(b, c, hh, w).transpose(0, 2, 3, 1)
         return out.reshape(block.shape)
 
@@ -395,7 +393,6 @@ def make_equalize_row_split_fn(
     axis_name: str = ROW_AXIS,
     batch_axis: str | None = None,
     channels: int | None = None,
-    use_cmp: bool = False,
 ) -> Callable[[jax.Array], jax.Array]:
     """Histogram equalization over H-sharded images: psum, not halo.
 
@@ -405,14 +402,13 @@ def make_equalize_row_split_fn(
     256-bin histograms of its own rows, one ``lax.psum`` over the row
     axis produces the global per-(image, channel) histograms on every
     shard, each shard builds the identical LUT and applies it to its
-    local rows. One tiny collective ((B*C, 256) int32 over ICI) per
+    local rows. One tiny collective ((B*C, 256) int32) per
     batch — bit-identical to the single-device
     :func:`hipe_tpu.ops.equalize.equalize_nhwc` for every shard count.
 
     Input/output: (B, H, W, C) uint8 — or rows (B, H, W*C) with
     ``channels=C`` — H sharded over ``axis_name`` (and B over
-    ``batch_axis`` if given: DP x SP). ``use_cmp=True`` selects the
-    fused comparison-sum LUT apply (exact; see ``ops/equalize.py``).
+    ``batch_axis`` if given: DP x SP).
     """
     from hipe_tpu.ops import equalize as eq
 
@@ -425,7 +421,7 @@ def make_equalize_row_split_fn(
 
     return _make_stats_row_split_fn(
         mesh, plane_luts, axis_name=axis_name, batch_axis=batch_axis,
-        channels=channels, use_cmp=use_cmp,
+        channels=channels,
     )
 
 
@@ -436,7 +432,6 @@ def make_autocontrast_row_split_fn(
     batch_axis: str | None = None,
     channels: int | None = None,
     cutoff=0,
-    use_cmp: bool = False,
     preserve_tone: bool = False,
 ) -> Callable[[jax.Array], jax.Array]:
     """Autocontrast over H-sharded images: pmin/pmax of local extrema.
@@ -480,7 +475,7 @@ def make_autocontrast_row_split_fn(
 
     return _make_stats_row_split_fn(
         mesh, plane_luts, axis_name=axis_name, batch_axis=batch_axis,
-        channels=channels, use_cmp=use_cmp,
+        channels=channels,
     )
 
 
@@ -491,7 +486,6 @@ def make_contrast_row_split_fn(
     axis_name: str = ROW_AXIS,
     batch_axis: str | None = None,
     channels: int | None = None,
-    use_cmp: bool = False,
 ) -> Callable[[jax.Array], jax.Array]:
     """PIL-exact contrast over H-sharded images: psum of luma histograms.
 
@@ -521,7 +515,7 @@ def make_contrast_row_split_fn(
 
     return _make_stats_row_split_fn(
         mesh, plane_luts, axis_name=axis_name, batch_axis=batch_axis,
-        channels=channels, use_cmp=use_cmp,
+        channels=channels,
     )
 
 
@@ -532,7 +526,6 @@ def make_color_row_split_fn(
     axis_name: str = ROW_AXIS,
     batch_axis: str | None = None,
     channels: int | None = None,
-    use_cmp: bool = False,
 ) -> Callable[[jax.Array], jax.Array]:
     """PIL-exact saturation blend over H-sharded images: no collective.
 
@@ -572,7 +565,6 @@ def make_sharpness_row_split_fn(
     axis_name: str = ROW_AXIS,
     batch_axis: str | None = None,
     channels: int | None = None,
-    use_cmp: bool = False,
 ) -> Callable[[jax.Array], jax.Array]:
     """PIL-exact sharpness over H-sharded images: halo + border masks.
 
@@ -634,7 +626,6 @@ def make_mode_row_split_fn(
     axis_name: str = ROW_AXIS,
     batch_axis: str | None = None,
     channels: int | None = None,
-    use_cmp: bool = False,
 ) -> Callable[[jax.Array], jax.Array]:
     """PIL-exact ModeFilter over H-sharded images: halo + sentinel masks.
 

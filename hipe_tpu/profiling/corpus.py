@@ -2,7 +2,7 @@
 
 Reproduces the reference's `data/` corpus layout (SURVEY.md L7): one report
 log per run plus `per_run.csv` and `avg_by_batch.csv` aggregates matching
-the schema of `/root/reference/data/approach2/approach2/*.csv` (the
+the schema of `data/approach2/approach2/*.csv` (the
 reference's aggregation script itself was never committed; this is its
 framework-native replacement).
 """
@@ -22,7 +22,7 @@ _NON_NUMERIC = {"file", "mode", "bottleneck", "wg_w", "wg_h"}
 
 
 def write_corpus(stats_list: list[RunStats], out_dir: str,
-                 accel_name: str = "TPU") -> tuple[str, str]:
+                 accel_name: str = "GPU") -> tuple[str, str]:
     """Write logs + per_run.csv + avg_by_batch.csv; returns the CSV paths."""
     os.makedirs(out_dir, exist_ok=True)
     run_index: dict[int, int] = defaultdict(int)

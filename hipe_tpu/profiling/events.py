@@ -2,8 +2,8 @@
 
 The reference profiles every enqueued command with OpenCL events (3 per
 image: transfer-in, kernel, transfer-out) accumulated into six per-device
-counters plus a wall clock (`/root/reference/heterogeneous_blur.c:472-476,
-544-579,32-36`). JAX's dispatch is asynchronous, so the TPU equivalent is
+counters plus a wall clock (`heterogeneous_blur.c:472-476,
+544-579,32-36`). JAX's dispatch is asynchronous, so the device equivalent is
 stage-timed execution: each lane times host->device transfer, jitted kernel
 execution, and device->host read-back with explicit synchronization — the
 analog of a profiling-enabled in-order queue. The six-counter schema and
@@ -103,7 +103,7 @@ class RunStats:
     """Everything the analyzer/report needs about one engine run."""
 
     approach: int  # 1 = image-level, 2 = row-split
-    mode: str  # 'both' | 'cpu' | 'tpu'
+    mode: str  # 'both' | 'cpu' | 'gpu'
     gpu_ratio: float  # fraction of work on the accelerator
     batch_size: int
     num_images: int
@@ -121,11 +121,11 @@ class RunStats:
     )
     split_row: int | None = None  # approach 2 only
     halo: int | None = None
-    # Per-lane execution-config labels ('xla' | 'pallas' | autotuned block
-    # labels): the TPU analog of the reference's 16x16 work-group size,
-    # recorded into the CSV wg_w/wg_h columns so they are never empty.
+    # Per-lane execution labels ('xla' or the kernel a lane ran): the
+    # analog of the reference's 16x16 work-group size, recorded into the
+    # CSV wg_w/wg_h columns so they are never empty.
     cpu_exec: str = "xla"
-    accel_exec: str = "pallas"
+    accel_exec: str = "xla"
 
     @property
     def images_per_sec(self) -> float:

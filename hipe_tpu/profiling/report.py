@@ -1,7 +1,7 @@
 """The 8-section performance report and CSV metric contract.
 
 Mirrors the reference's PERFORMANCE RESULTS report
-(`/root/reference/heterogeneous_blur.c:611-724`): overall wall time,
+(`heterogeneous_blur.c:611-724`): overall wall time,
 per-device totals with in/kernel/out percentage splits, device comparison,
 workload imbalance, bottleneck identification (communication vs computation),
 throughput (Mpix/s, img/s), and the optimal-ratio recommendation. The
@@ -51,7 +51,7 @@ def recommended_ratio(stats: RunStats) -> float:
     return recommend_ratio(stats.cpu.per_unit_ms(), stats.accel.per_unit_ms())
 
 
-def render_report(stats: RunStats, accel_name: str = "TPU") -> str:
+def render_report(stats: RunStats, accel_name: str = "GPU") -> str:
     """The 8-section PERFORMANCE RESULTS report."""
     s = stats
     lines = ["\n========== PERFORMANCE RESULTS ==========\n"]
@@ -146,7 +146,7 @@ def to_csv_row(stats: RunStats, run: int = 1, file: str = "") -> dict:
         "batches": s.num_batches,
         "img_w": s.width,
         "img_h": s.height,
-        # No 16x16 work-groups on TPU (the reference writes "16,16" here);
+        # No OpenCL 16x16 work-groups here (the reference writes "16,16");
         # the analog is the per-lane kernel execution config, recorded so
         # tooling reading these columns sees the chosen path, not blanks.
         "wg_w": s.cpu_exec,

@@ -41,7 +41,7 @@ class LaneSpec:
     device: object
     weight: float = 1.0
     name: str = ""
-    path: str = "auto"  # 'auto' -> pallas on accelerators, xla on cpu
+    path: str = "auto"  # 'auto': the GPU kernel on CUDA lanes, else XLA
 
 
 @dataclasses.dataclass
@@ -135,13 +135,9 @@ class FleetEngine:
         for i, spec in enumerate(lanes):
             counters = DeviceCounters(spec.name or f"lane{i}")
             self.stats.lanes.append(counters)
-            path = spec.path
-            if path == "auto":
-                path = (
-                    "xla"
-                    if getattr(spec.device, "platform", "cpu") == "cpu"
-                    else "pallas"
-                )
+            # 'auto' == 'pallas': the lane itself keeps the GPU kernel to
+            # CUDA devices and runs XLA everywhere else.
+            path = "xla" if spec.path == "xla" else "pallas"
             self._lanes.append(
                 _Lane(counters.name, spec.device, self.pipeline, counters,
                       path=path, profile=profile)
@@ -295,7 +291,7 @@ class FleetEngine:
         `data/approach2/approach2/per_run.csv`); an N-lane fleet maps onto
         it by aggregating host-CPU lanes into the cpu group and accelerator
         lanes into the gpu group (gpu_ratio := accelerator share of the
-        weights). For the canonical CPU+TPU two-lane fleet this is exact.
+        weights). For the canonical CPU+GPU two-lane fleet this is exact.
         """
         from hipe_tpu.profiling.events import RunStats
 
@@ -314,7 +310,7 @@ class FleetEngine:
                 acc_weight += spec.weight
         total_w = sum(spec.weight for spec in self._specs)
         mode = "both" if (cpu.units and acc.units) else (
-            "cpu" if cpu.units else "tpu"
+            "cpu" if cpu.units else "gpu"
         )
         rs = RunStats(
             approach=self.approach,
@@ -331,7 +327,7 @@ class FleetEngine:
             cpu=cpu,
             accel=acc,
             cpu_exec="/".join(sorted(cpu_paths)) or "xla",
-            accel_exec="/".join(sorted(acc_paths)) or "pallas",
+            accel_exec="/".join(sorted(acc_paths)) or "xla",
         )
         return rs
 

@@ -1,12 +1,12 @@
 """Fused decode -> filter -> encode serving pipeline (BASELINE config 5).
 
 The reference's full data path is JPEG decode (CImg) -> device blur ->
-optional JPEG encode (`/root/reference/split_image_blur.c:106-139,548-553`).
+optional JPEG encode (`split_image_blur.c:106-139,548-553`).
 This module is that path as a streaming service: batched multithreaded native
-JPEG decode (hipe_tpu.io_.jpeg), device filtering (Pallas on TPU), and
-multithreaded JPEG encode, with decode of batch k+1 prefetched while the
-device processes batch k (double buffering, the TPU analog of the
-reference's async write/kernel/read overlap). Handles mixed-resolution
+JPEG decode (hipe_tpu.io_.jpeg), device filtering, and multithreaded JPEG
+encode, with decode of batch k+1 prefetched while the device processes
+batch k (double buffering, the analog of the reference's async
+write/kernel/read overlap). Handles mixed-resolution
 streams: jitted device functions are cached per input shape.
 """
 
@@ -69,7 +69,7 @@ class ServingPipeline:
         self.quality = quality
         self.decode_threads = decode_threads
         if use_pallas is None:
-            use_pallas = getattr(self.device, "platform", "cpu") != "cpu"
+            use_pallas = plib.default_use_pallas(self.device)
         self.use_pallas = use_pallas
         # decode_on_device: host does entropy decode only; dequant + IDCT +
         # upsample + YCbCr run on the device fused with the filter
@@ -125,7 +125,7 @@ class ServingPipeline:
         self.output_scale = output_scale
         # resize_to=(H, W): arbitrary-size outputs — after the filter, the
         # integer-exact separable bilinear resize (ops/resize.py, two
-        # two-tap banded matmuls, MXU-native) rescales to exactly (H, W).
+        # two-tap banded matmuls) rescales to exactly (H, W).
         # Orthogonal to decode_scale (which changes the FILTER resolution);
         # not combinable with the fixed 2x jcsample thumbnail.
         if resize_to is not None:
@@ -296,19 +296,13 @@ class ServingPipeline:
         return small.reshape(b, h2, w2 * c)
 
     def _device_fn(self, shape: tuple):
-        """Per-shape jitted NHWC filter (planar Pallas path on TPU)."""
+        """Per-shape jitted rows-layout filter (+ post-filter stages)."""
         if shape not in self._fns:
             pipe, pallas_flag = self.pipeline, self.use_pallas
             b, h, w, channels = shape
-            reshapes = (self.output_scale == 2 or self.resize_to is not None
-                        or self._out_c(channels) != channels)
 
             def fn(rows):
-                # The staged input is dead after the call: donate it and run
-                # the Pallas kernel in place (~2x DMA, see ops.pallas_blur).
-                out = pipe.apply_rows(rows, channels,
-                                      use_pallas=pallas_flag,
-                                      alias=pallas_flag)
+                out = pipe.apply_rows(rows, channels, use_pallas=pallas_flag)
                 out = self._post_filter_rows(out, rows.shape[0], h, w,
                                              channels)
                 oh, ow = self._out_dims(h, w)
@@ -316,9 +310,7 @@ class ServingPipeline:
                 return self._colorize_rows(out, rows.shape[0], oh, ow,
                                            self._gray_c(channels))
 
-            self._fns[shape] = jax.jit(
-                fn, donate_argnums=0 if (pallas_flag and not reshapes) else ()
-            )
+            self._fns[shape] = jax.jit(fn)
         return self._fns[shape]
 
     def _decode(self, payloads: list[bytes]) -> np.ndarray:
@@ -353,6 +345,11 @@ class ServingPipeline:
         self.stats.device_ms += now_ms() - t0
         oh, ow = self._out_dims(h, w)
         return out.reshape(b, oh, ow, self._out_c(c))
+
+    def process_pixels(self, batch: np.ndarray) -> np.ndarray:
+        """Filter (+ resize/thumbnail/gray/colorize) an already-decoded
+        (B, H, W, C) uint8 batch on the device; returns pixels."""
+        return self._filter_device(np.asarray(batch))
 
     def _encode(self, batch: np.ndarray) -> list[bytes]:
         if self.encode_on_device:
@@ -418,8 +415,7 @@ class ServingPipeline:
 
             def fn(rows):
                 if with_filter:
-                    rows = pipe.apply_rows(rows, c, use_pallas=pallas_flag,
-                                           alias=pallas_flag)
+                    rows = pipe.apply_rows(rows, c, use_pallas=pallas_flag)
                     rows = self._post_filter_rows(rows, b, h, w, c)
                     rows = self._gray_rows(rows, b, oh, ow, c)
                     rows = self._colorize_rows(rows, b, oh, ow,
@@ -427,8 +423,6 @@ class ServingPipeline:
                 img = rows.reshape(b, oh, ow, oc)
                 return tuple(je.encode_planes(geo, img, qtables))
 
-            # No donation: outputs are int16 coefficient planes, never
-            # shape/dtype-compatible with the uint8 input buffer.
             self._fns[key] = jax.jit(fn)
         return self._fns[key]
 
@@ -494,11 +488,7 @@ class ServingPipeline:
                                                qtables, denom, layout="rows")
                 b = rows.shape[0]
                 c = rows.shape[-1] // w
-                # The decoded intermediate is dead after the filter, so the
-                # aliased in-place Pallas kernel applies without a
-                # copy-protect (see ops.pallas_blur on input/output aliasing)
-                out = pipe.apply_rows(rows, c, use_pallas=pallas_flag,
-                                      alias=pallas_flag)
+                out = pipe.apply_rows(rows, c, use_pallas=pallas_flag)
                 out = self._post_filter_rows(out, b, h, w, c)
                 oh, ow = self._out_dims(h, w)
                 out = self._gray_rows(out, b, oh, ow, c)
@@ -619,8 +609,7 @@ class ServingPipeline:
             def fn(*comp_coefs):
                 rows = jd.decode_planes_scaled(geo, list(comp_coefs), qt_in,
                                                denom, layout="rows")
-                out = pipe.apply_rows(rows, c, use_pallas=pallas_flag,
-                                      alias=pallas_flag)
+                out = pipe.apply_rows(rows, c, use_pallas=pallas_flag)
                 out = self._post_filter_rows(out, out.shape[0], h, w, c)
                 out = self._gray_rows(out, out.shape[0], oh, ow, c)
                 out = self._colorize_rows(out, out.shape[0], oh, ow,

@@ -1,10 +1,10 @@
 """Input streaming: the simulated image stream and JPEG decode pipelines.
 
 The reference simulates a 5000-image stream by memcpy-replicating one decoded
-JPEG into a contiguous per-batch buffer (`/root/reference/
-heterogeneous_blur.c:418-442`), the last batch being the remainder. This
-module reproduces that (zero-copy on host via broadcasting — the real copy
-happens at host->device transfer, which is the part that matters on TPU) and
+JPEG into a contiguous per-batch buffer (`heterogeneous_blur.c:418-442`),
+the last batch being the remainder. This module reproduces that (zero-copy
+on host via broadcasting — the real copy happens at host->device transfer,
+which is the part that matters on an accelerator) and
 adds real decode streams: batched multithreaded JPEG decode through the
 native codec, including the mixed-resolution stream of BASELINE.json
 config 5.

@@ -33,26 +33,23 @@ def test_oracle_matches_pil(factor):
         eq.contrast_oracle(gray, factor), _pil_contrast(gray, factor))
 
 
-@pytest.mark.parametrize("use_cmp", [False, True])
-def test_jax_paths_match_pil(use_cmp):
+@pytest.mark.parametrize("factor", [0.6, 1.7])
+def test_jax_paths_match_pil(factor):
     rng = np.random.default_rng(7)
     batch = np.stack(
         [rng.integers(0, 256, (32, 40, 3), np.uint8) for _ in range(3)])
-    want = np.stack([_pil_contrast(b, 0.6) for b in batch])
-    got = np.asarray(
-        eq.contrast_nhwc(jnp.asarray(batch), factor=0.6, use_cmp=use_cmp))
+    want = np.stack([_pil_contrast(b, factor) for b in batch])
+    got = np.asarray(eq.contrast_nhwc(jnp.asarray(batch), factor=factor))
     np.testing.assert_array_equal(got, want)
     rows = jnp.asarray(batch.reshape(3, 32, 120))
-    got_r = np.asarray(
-        eq.contrast_rows(rows, 3, factor=0.6, use_cmp=use_cmp))
+    got_r = np.asarray(eq.contrast_rows(rows, 3, factor=factor))
     np.testing.assert_array_equal(got_r.reshape(batch.shape), want)
     planes = jnp.asarray(batch.transpose(0, 3, 1, 2).reshape(9, 32, 40))
-    got_p = np.asarray(
-        eq.contrast_planar(planes, 3, factor=0.6, use_cmp=use_cmp))
+    got_p = np.asarray(eq.contrast_planar(planes, 3, factor=factor))
     np.testing.assert_array_equal(
         got_p, want.transpose(0, 3, 1, 2).reshape(9, 32, 40))
     # Traced path (cube embedded as a program constant).
-    jf = jax.jit(lambda x: eq.contrast_nhwc(x, factor=0.6, use_cmp=use_cmp))
+    jf = jax.jit(lambda x: eq.contrast_nhwc(x, factor=factor))
     np.testing.assert_array_equal(np.asarray(jf(jnp.asarray(batch))), want)
 
 
@@ -110,8 +107,8 @@ def test_pipeline_registry_and_validation():
         pipe.radius
 
 
-@pytest.mark.parametrize("use_cmp", [False, True])
-def test_row_split_psum_luma_exact(use_cmp):
+@pytest.mark.parametrize("layout", ["nhwc", "rows"])
+def test_row_split_psum_luma_exact(layout):
     from hipe_tpu.parallel import mesh as meshlib
     from hipe_tpu.parallel.row_split import make_contrast_row_split_fn
 
@@ -120,8 +117,13 @@ def test_row_split_psum_luma_exact(use_cmp):
     batch = np.stack(
         [rng.integers(0, 256, (64, 40, 3), np.uint8) for _ in range(3)])
     want = np.stack([_pil_contrast(b, 0.6) for b in batch])
-    fn = make_contrast_row_split_fn(mesh, factor=0.6, use_cmp=use_cmp)
-    got = np.asarray(fn(jnp.asarray(batch)))
+    if layout == "rows":
+        fn = make_contrast_row_split_fn(mesh, factor=0.6, channels=3)
+        got = np.asarray(fn(jnp.asarray(batch.reshape(3, 64, 120))))
+        got = got.reshape(batch.shape)
+    else:
+        fn = make_contrast_row_split_fn(mesh, factor=0.6)
+        got = np.asarray(fn(jnp.asarray(batch)))
     np.testing.assert_array_equal(got, want)
 
 

@@ -16,6 +16,17 @@ from hipe_tpu.profiling.report import render_report, to_csv_row
 from hipe_tpu.runtime.engine import Engine, EngineConfig
 from hipe_tpu.utils.images import checker_image
 
+# Header of the reference corpus's data/approach2/approach2/per_run.csv
+# (the reference checkout is not part of this repository).
+REFERENCE_PER_RUN_HEADER = (
+    "batch_size_file,run,file,mode,gpu_ratio_cfg,cpu_ratio_cfg,images,"
+    "batches,img_w,img_h,wg_w,wg_h,wall_ms,cpu_images,cpu_total_ms,"
+    "cpu_in_ms,cpu_kernel_ms,cpu_out_ms,cpu_ms_per_img,gpu_images,"
+    "gpu_total_ms,gpu_in_ms,gpu_kernel_ms,gpu_out_ms,gpu_ms_per_img,"
+    "speedup_gpu_vs_cpu,imbalance_pct,bottleneck,bottleneck_delta_ms,"
+    "mpix_per_sec,img_per_sec,recommended_gpu_ratio,batch_size_log"
+).split(",")
+
 
 def _devices():
     devs = jax.devices("cpu")
@@ -43,7 +54,7 @@ def test_approach1_both_accounting():
     assert stats.cpu.total_ms > 0 and stats.accel.total_ms > 0
 
 
-@pytest.mark.parametrize("mode", ["cpu", "tpu"])
+@pytest.mark.parametrize("mode", ["cpu", "gpu", "tpu"])
 def test_approach1_single_device(mode):
     eng = _engine(approach=1, mode=mode, batch_size=16, num_images=32)
     stats = eng.run(image=IMG)
@@ -106,8 +117,8 @@ def test_report_renders_all_sections():
     eng = _engine(approach=1, mode="both", gpu_ratio=0.5, batch_size=16,
                   num_images=32)
     stats = eng.run(image=IMG)
-    text = render_report(stats, accel_name="TPU")
-    for section in ["1. OVERALL", "2. CPU DEVICE", "3. TPU DEVICE",
+    text = render_report(stats, accel_name="GPU")
+    for section in ["1. OVERALL", "2. CPU DEVICE", "3. GPU DEVICE",
                     "4. DEVICE COMPARISON", "5. WORKLOAD BALANCE",
                     "6. BOTTLENECK", "7. THROUGHPUT",
                     "8. OPTIMAL RATIO RECOMMENDATION"]:
@@ -123,7 +134,7 @@ def test_csv_row_schema():
     assert list(row.keys()) == CSV_COLUMNS
     assert row["images"] == 32
     assert row["img_per_sec"] > 0
-    # The work-group columns carry the per-lane execution config (the TPU
+    # The work-group columns carry the per-lane execution config (the
     # analog of the reference's 16x16 local size) — never blank.
     assert row["wg_w"] == "xla"  # cpu lane
     assert row["wg_h"]  # accel lane path label
@@ -152,9 +163,7 @@ def test_csv_schema_matches_reference_header():
     """Our CSV contract == the reference corpus header, column for column."""
     from hipe_tpu.profiling.report import CSV_COLUMNS
 
-    with open("/root/reference/data/approach2/approach2/per_run.csv") as f:
-        ref_header = f.readline().strip().split(",")
-    assert CSV_COLUMNS == ref_header
+    assert CSV_COLUMNS == REFERENCE_PER_RUN_HEADER
 
 
 def test_approach2_mixed_resolution_stream():

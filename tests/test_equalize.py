@@ -1,10 +1,12 @@
-"""Histogram equalization: PIL-exact LUT build, comparison-sum apply, psum sharding.
+"""Histogram equalization: PIL-exact LUT build, gather apply, psum sharding.
 
 Three-way exactness: PIL ``ImageOps.equalize`` (the external oracle) ==
-the NumPy oracle (``equalize_oracle``) == both JAX formulations (gather
-and fused comparison-sum), plus the psum row-split on a virtual mesh ==
-single-device, plus the serving/pipeline integrations.
+the NumPy oracle (``equalize_oracle``) == the JAX gather path, plus the
+psum row-split on a virtual mesh == single-device, plus the
+serving/pipeline integrations.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -54,12 +56,13 @@ def test_oracle_matches_pil(name, img):
     np.testing.assert_array_equal(eq.equalize_oracle(img), _pil_equalize(img))
 
 
-@pytest.mark.parametrize("use_cmp", [False, True], ids=["gather", "cmp"])
-def test_jax_paths_match_oracle(use_cmp):
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+def test_jax_paths_match_oracle(jit):
+    fn = jax.jit(eq.equalize_nhwc) if jit else eq.equalize_nhwc
     for name, img in _cases().items():
-        got = np.asarray(eq.equalize_nhwc(jnp.asarray(img), use_cmp=use_cmp))
+        got = np.asarray(fn(jnp.asarray(img)))
         np.testing.assert_array_equal(got, eq.equalize_oracle(img),
-                                      err_msg=f"case {name} use_cmp={use_cmp}")
+                                      err_msg=f"case {name} jit={jit}")
 
 
 def test_grayscale_plane():
@@ -82,7 +85,7 @@ def test_layout_consistency():
 
 def test_pipeline_registry_and_methods():
     pipe = plib.get("equalize")
-    assert pipe.has_pallas_blocks is False
+    assert pipe.has_kernel is False
     rng = np.random.default_rng(5)
     x = rng.integers(0, 256, (40, 56, 3), np.uint8)
     want = eq.equalize_oracle(x)
@@ -98,13 +101,10 @@ def test_pipeline_registry_and_methods():
         ),
         want,
     )
-    # Pallas-path knobs are accepted and ignored; halo mode is refused.
+    # use_pallas is accepted (no kernel: XLA); halo mode is refused.
     planes = jnp.asarray(x.transpose(2, 0, 1))
     np.testing.assert_array_equal(
-        np.asarray(
-            pipe.apply_planar(planes, use_pallas=True, alias=True,
-                              block_planes=8)
-        ),
+        np.asarray(pipe.apply_planar(planes, use_pallas=True)),
         want.transpose(2, 0, 1),
     )
     with pytest.raises(ValueError, match="h_pad"):
@@ -116,7 +116,7 @@ def test_stream_scale_apply_chunks_bit_exact(monkeypatch):
     a lax.map over image-aligned chunks (the unchunked equalize gather
     OOM'd HBM at the 5000-image resident stream on silicon: int32 index +
     output temps ~8 GB, "Used 16.48G of 15.75G"). Chunking must be
-    bit-identical for every global-statistics family, both formulations."""
+    bit-identical for every global-statistics family."""
     rng = np.random.default_rng(3)
     planes = jnp.asarray(rng.integers(0, 256, (12, 16, 24), np.uint8))
     cases = [
@@ -134,9 +134,8 @@ def test_stream_scale_apply_chunks_bit_exact(monkeypatch):
         want = np.asarray(pipe.apply_planar(planes, use_pallas=False))
         monkeypatch.setattr(plib, "GLOBAL_STATS_PLANE_CHUNK", 6)
         assert plib._global_stats_chunk(12, 3) == 6
-        for use_pallas in (False, True):
-            got = pipe.apply_planar(planes, use_pallas=use_pallas)
-            np.testing.assert_array_equal(np.asarray(got), want, err_msg=name)
+        got = pipe.apply_planar(planes)
+        np.testing.assert_array_equal(np.asarray(got), want, err_msg=name)
         monkeypatch.setattr(plib, "GLOBAL_STATS_PLANE_CHUNK", 3072)
 
 
@@ -152,18 +151,18 @@ def test_no_radius_and_no_halo_fns():
         plib.get(["gaussian3", "equalize"])
 
 
-@pytest.mark.parametrize("use_cmp", [False, True], ids=["gather", "cmp"])
-def test_row_split_psum_exact(use_cmp):
-    """8-way H sharding == single device, for every formulation."""
+@pytest.mark.parametrize("n_shards", [8, 4])
+def test_row_split_psum_exact(n_shards):
+    """n-way H sharding == single device."""
     from hipe_tpu.parallel.mesh import ROW_AXIS
     from hipe_tpu.parallel.row_split import make_equalize_row_split_fn
     from jax.sharding import Mesh
 
-    devs = jax.devices("cpu")[:8]
+    devs = jax.devices("cpu")[:n_shards]
     mesh = Mesh(np.array(devs), (ROW_AXIS,))
     rng = np.random.default_rng(11)
     x = rng.integers(0, 256, (2, 64, 48, 3), np.uint8)
-    fn = make_equalize_row_split_fn(mesh, use_cmp=use_cmp)
+    fn = make_equalize_row_split_fn(mesh)
     got = np.asarray(fn(jnp.asarray(x)))
     for b in range(2):
         np.testing.assert_array_equal(got[b], eq.equalize_oracle(x[b]))
@@ -269,15 +268,13 @@ def test_autocontrast_oracle_matches_pil(name, img):
         assert got[img == 33].max() == 254  # the fp64 rounding, reproduced
 
 
-@pytest.mark.parametrize("use_cmp", [False, True], ids=["gather", "cmp"])
-def test_autocontrast_jax_matches_pil(use_cmp):
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "jit"])
+def test_autocontrast_jax_matches_pil(jit):
+    fn = jax.jit(eq.autocontrast_nhwc) if jit else eq.autocontrast_nhwc
     for name, img in _ac_cases().items():
-        got = np.asarray(
-            eq.autocontrast_nhwc(jnp.asarray(img), use_cmp=use_cmp)
-        )
+        got = np.asarray(fn(jnp.asarray(img)))
         np.testing.assert_array_equal(
-            got, _pil_autocontrast(img),
-            err_msg=f"case {name} use_cmp={use_cmp}",
+            got, _pil_autocontrast(img), err_msg=f"case {name} jit={jit}",
         )
 
 
@@ -358,7 +355,7 @@ def test_autocontrast_cutoff_pipeline_field():
 
 def test_autocontrast_pipeline_and_registry():
     pipe = plib.get("autocontrast")
-    assert pipe.has_pallas_blocks is False
+    assert pipe.has_kernel is False
     rng = np.random.default_rng(29)
     x = rng.integers(40, 200, (36, 44, 3), np.uint8)
     want = eq.autocontrast_oracle(x)
@@ -431,7 +428,7 @@ def test_fleet_image_level_runs_global_stats_pipelines():
 
 
 def test_device_stream_runner_equalize():
-    """DeviceStreamRunner routes equalize; autotune skips block sweep."""
+    """DeviceStreamRunner routes equalize; autotune times XLA alone."""
     from hipe_tpu.runtime.device_stream import DeviceStreamRunner
 
     img = np.random.default_rng(19).integers(0, 256, (32, 32, 3), np.uint8)
@@ -439,14 +436,14 @@ def test_device_stream_runner_equalize():
                           use_pallas=True, tune_cache_path="/dev/null")
     assert r.verify_max_abs_err() == 0
     timings = r.autotune(passes=1, reps=1, cache=False)
-    assert set(timings) <= {"xla", "pallas"}  # no fictitious block configs
+    assert set(timings) == {"xla"}  # no kernel, so no kernel configs
 
 
 @pytest.mark.parametrize("cutoff", [0, 2, (1, 3)])
 def test_autocontrast_preserve_tone_matches_pil(cutoff):
     # PIL preserve_tone: ONE Pillow-luma-derived range applied to all
     # channels — per-image, like contrast. Oracle (literal walk on the
-    # luma histogram) and JAX paths (incl. cmp apply) vs PIL itself.
+    # luma histogram) and JAX paths (eager and traced) vs PIL itself.
     from PIL import Image, ImageOps
 
     rng = np.random.default_rng(61)
@@ -455,11 +452,11 @@ def test_autocontrast_preserve_tone_matches_pil(cutoff):
         Image.fromarray(img), cutoff=cutoff, preserve_tone=True))
     np.testing.assert_array_equal(
         eq.autocontrast_oracle(img, cutoff, preserve_tone=True), want)
-    for cmp_ in (False, True):
-        got = np.asarray(eq.autocontrast_nhwc(
-            jnp.asarray(img[None]), cutoff=cutoff, preserve_tone=True,
-            use_cmp=cmp_))[0]
-        np.testing.assert_array_equal(got, want, err_msg=f"cmp={cmp_}")
+    fn = functools.partial(eq.autocontrast_nhwc, cutoff=cutoff,
+                           preserve_tone=True)
+    for f in (fn, jax.jit(fn)):
+        got = np.asarray(f(jnp.asarray(img[None])))[0]
+        np.testing.assert_array_equal(got, want)
 
 
 def test_autocontrast_preserve_tone_pipeline_and_sharded():

@@ -1,6 +1,5 @@
-"""Failure handling: fail-fast discovery, codec fallback (SURVEY.md §5)."""
+"""Failure handling: fail-fast discovery, missing codec (SURVEY.md §5)."""
 
-import numpy as np
 import pytest
 
 from hipe_tpu.io_ import jpeg
@@ -33,14 +32,16 @@ def test_engine_fails_fast_without_accelerator(monkeypatch):
 
 
 def test_jpeg_pil_fallback(monkeypatch):
-    """With the native codec unavailable, PIL fallback stays functional."""
-    monkeypatch.setattr(jpeg, "_load", lambda: None)
+    """With the native codec unavailable there is no PIL fallback: every
+    JPEG entry point raises one clear error naming what is missing."""
     img = checker_image(16, 16, 3, seed=0)
     payload = jpeg.encode_bytes(img, quality=95)
-    out = jpeg.decode_bytes(payload)
-    assert out.shape == img.shape and out.dtype == np.uint8
-    batch = jpeg.decode_batch([payload] * 3)
-    assert batch.shape == (3, 16, 16, 3)
+    monkeypatch.setattr(jpeg, "_load", lambda: None)
+    for call in (lambda: jpeg.encode_bytes(img, quality=95),
+                 lambda: jpeg.decode_bytes(payload),
+                 lambda: jpeg.decode_batch([payload] * 3)):
+        with pytest.raises(RuntimeError, match="libjpeg"):
+            call()
 
 
 def test_approach2_rejects_single_device_mode():

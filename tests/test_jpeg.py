@@ -4,17 +4,24 @@ import numpy as np
 import pytest
 
 from hipe_tpu.io_ import jpeg
-from hipe_tpu.utils.images import DEFAULT_IMAGE_256, DEFAULT_IMAGE_320
+from hipe_tpu.utils.images import REFERENCE_256, REFERENCE_320, seeded_image
+
+# Seeded stand-ins for the reference's two JPEG assets (same geometry).
+SIZES = {"256x256": REFERENCE_256, "320x240": REFERENCE_320}
+
+
+def _asset(name: str, quality: int = 90) -> bytes:
+    return jpeg.encode_bytes(seeded_image(*SIZES[name], seed=len(name)),
+                             quality=quality)
 
 
 def test_native_codec_builds():
     assert jpeg.native_available(), "native libjpeg codec failed to build"
 
 
-@pytest.mark.parametrize("path", [DEFAULT_IMAGE_256, DEFAULT_IMAGE_320])
-def test_decode_matches_pil(path):
-    with open(path, "rb") as f:
-        data = f.read()
+@pytest.mark.parametrize("name", sorted(SIZES))
+def test_decode_matches_pil(name):
+    data = _asset(name)
     got = jpeg.decode_bytes(data)
     want = jpeg._pil_decode(data)
     assert got.shape == want.shape and got.dtype == np.uint8
@@ -33,8 +40,7 @@ def test_encode_decode_roundtrip_close():
 
 
 def test_decode_batch_matches_single():
-    with open(DEFAULT_IMAGE_256, "rb") as f:
-        data = f.read()
+    data = _asset("256x256")
     single = jpeg.decode_bytes(data)
     batch = jpeg.decode_batch([data] * 7, num_threads=4)
     assert batch.shape == (7,) + single.shape
@@ -49,8 +55,7 @@ def test_decode_invalid_raises():
 
 def test_decode_truncated_and_corrupted_payloads():
     """Native codec error paths: no crash, clean ValueError (setjmp path)."""
-    with open(DEFAULT_IMAGE_256, "rb") as f:
-        good = f.read()
+    good = _asset("256x256")
     rng = np.random.default_rng(0)
     cases = [
         good[: len(good) // 3],            # truncated body
@@ -69,8 +74,7 @@ def test_decode_truncated_and_corrupted_payloads():
 
 
 def test_decode_batch_with_one_bad_payload_raises():
-    with open(DEFAULT_IMAGE_256, "rb") as f:
-        good = f.read()
+    good = _asset("256x256")
     with pytest.raises(ValueError):
         jpeg.decode_batch([good, b"junk-not-a-jpeg", good])
 

@@ -2,7 +2,7 @@
 
 The reference loads JPEGs through CImg -> libjpeg, which decodes whatever
 the library decodes — including 4-component Adobe CMYK (transform 0) and
-YCCK (transform 2) streams (/root/reference/CImg/CImg.h load_jpeg switches
+YCCK (transform 2) streams (CImg/CImg.h load_jpeg switches
 on cinfo.output_components). Parity here: the host codec decodes them to
 4-channel CMYK samples exactly as libjpeg emits them, and the device
 decode split reproduces that byte-for-byte (jdcolor.c ycck_cmyk_convert /

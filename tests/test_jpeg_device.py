@@ -1,10 +1,10 @@
 """Device-side JPEG decode: bit-exact vs the host libjpeg pipeline.
 
-The TPU-native decode split (host entropy decode -> device dequant + IDCT +
+The device decode split (host entropy decode -> device dequant + IDCT +
 upsample + color convert, ops/jpeg_decode.py) must reproduce libjpeg's
 default integer decode byte-for-byte: jpeg_idct_islow (jidctint.c), fancy
 upsampling (jdsample.c), ycc_rgb_convert (jdcolor.c). The reference decodes
-entirely on host via CImg (/root/reference/heterogeneous_blur.c:106-137);
+entirely on host via CImg (heterogeneous_blur.c:106-137);
 equivalence to that path is equivalence to libjpeg itself.
 """
 
@@ -34,9 +34,12 @@ def _rand(h, w, c, seed=0):
 
 
 def test_asset_bit_exact():
-    for name in ("image_256x256.jpg", "image_320x240.jpg"):
-        with open(f"/root/reference/{name}", "rb") as f:
-            data = f.read()
+    # Seeded photo-like stand-ins at the reference assets' geometries.
+    from hipe_tpu.utils.images import REFERENCE_256, REFERENCE_320, seeded_image
+
+    for size in (REFERENCE_256, REFERENCE_320):
+        data = jpeg.encode_bytes(seeded_image(*size, seed=size[0]),
+                                 quality=90)
         host = jpeg.decode_bytes(data)
         dev = np.asarray(jd.decode_coefficients(jpeg.read_coefficients(data)))
         np.testing.assert_array_equal(host, dev)

@@ -11,7 +11,7 @@ geometry decisions are cross-checked against the library's own
 `jpeg_calc_output_dimensions` via the `scaled_info` probe.
 
 Reference parity note: the reference decodes full-size only (CImg load_jpeg,
-/root/reference/heterogeneous_blur.c:106-137); scaled decode is a
+heterogeneous_blur.c:106-137); scaled decode is a
 beyond-parity extension for thumbnail serving.
 """
 

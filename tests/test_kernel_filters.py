@@ -16,7 +16,6 @@ import jax.numpy as jnp
 
 from hipe_tpu.models import pipelines as plib
 from hipe_tpu.ops import blur as xblur
-from hipe_tpu.ops import pallas_blur
 from hipe_tpu.ops import reference as oracle
 
 
@@ -100,25 +99,24 @@ def test_presets_vs_pil_interior(preset):
         assert ((diff == 0) | ties).all(), preset
 
 
-def test_kernel_stages_fused_and_tiled_pallas():
+def test_kernel_stages_planar_and_rows():
     x = np.stack([_rand_img((32, 48), seed=s) for s in range(4)])
     for nm in ("pil_emboss", "pil_smooth", "pil_blur", "pil_smooth_more"):
         taps, scale, off = xblur.PIL_PRESETS[nm]
         want = np.stack([
             oracle.kernel_oracle(p[..., None], taps, scale, off)[..., 0]
             for p in x])
-        got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-            jnp.asarray(x), (nm,), interpret=True))
-        np.testing.assert_array_equal(got, want, err_msg=f"{nm} fused")
-        got_t = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-            jnp.asarray(x), (nm,), tile_h=16, interpret=True))
-        np.testing.assert_array_equal(got_t, want, err_msg=f"{nm} tiled")
-    # Kernel stages mix with stencil/nonlinear stages in one fused chain.
+        got = np.asarray(xblur.filter_chain(
+            jnp.asarray(x), (nm,), h_axis=-2, w_axis=-1))
+        np.testing.assert_array_equal(got, want, err_msg=f"{nm} planar")
+        got_r = np.asarray(xblur.filter_chain_rows(jnp.asarray(x), 1, (nm,)))
+        np.testing.assert_array_equal(got_r, want, err_msg=f"{nm} rows")
+    # Kernel stages mix with stencil/nonlinear stages in one chain.
     mix = ("gaussian3", "pil_emboss", "median")
     want = np.asarray(xblur.filter_chain(
         jnp.asarray(x)[..., None], mix, h_axis=-3, w_axis=-2))[..., 0]
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(x), mix, interpret=True))
+    got = np.asarray(xblur.filter_chain(
+        jnp.asarray(x), mix, h_axis=-2, w_axis=-1))
     np.testing.assert_array_equal(got, want)
 
 

@@ -12,7 +12,6 @@ import pytest
 import jax.numpy as jnp
 
 from hipe_tpu.ops import blur as xblur
-from hipe_tpu.ops import pallas_blur
 
 
 def _rand_img(shape, seed):
@@ -58,19 +57,21 @@ def test_lut_stage_equals_gather_for_arbitrary_lut():
     np.testing.assert_array_equal(got_h, lut[img])  # radius 0: same shape
 
 
-def test_lut_stage_in_mxu_chain_and_tiled():
+def test_lut_stage_in_chain_planar_and_rows():
     xblur.register_lut_filter("lt_g22", xblur.gamma_lut(2.2))
     x = np.stack([_rand_img((32, 48), seed=s) for s in range(4)])
     mix = ("gaussian3", "lt_g22", "sharpen")
     want = np.asarray(xblur.filter_chain(
         jnp.asarray(x)[..., None], mix, h_axis=-3, w_axis=-2))[..., 0]
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(x), mix, interpret=True))
+    got = np.asarray(xblur.filter_chain(
+        jnp.asarray(x), mix, h_axis=-2, w_axis=-1))
     np.testing.assert_array_equal(got, want)
+    got_r = np.asarray(xblur.filter_chain_rows(jnp.asarray(x), 1, mix))
+    np.testing.assert_array_equal(got_r, want)
     lut = xblur.gamma_lut(2.2)
-    got_t = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-        jnp.asarray(x), ("lt_g22",), tile_h=16, interpret=True))
-    np.testing.assert_array_equal(got_t, lut[x])
+    got_p = np.asarray(xblur.filter_chain(
+        jnp.asarray(x), ("lt_g22",), h_axis=-2, w_axis=-1))
+    np.testing.assert_array_equal(got_p, lut[x])
 
 
 def test_lut_stage_row_split_chain():

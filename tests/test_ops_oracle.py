@@ -1,6 +1,6 @@
 """Oracle self-consistency: the float (OpenCL-semantics) and integer
 formulations of every filter must agree bit-for-bit, and the 3x3 blur must
-match a literal per-pixel walk of /root/reference/gaussian_kernel.cl:19-72."""
+match a literal per-pixel walk of gaussian_kernel.cl:19-72."""
 
 import numpy as np
 import pytest

@@ -1,269 +1,161 @@
-"""Pallas TPU kernels vs the oracle (interpreter mode on the CPU mesh)."""
+"""The Pallas Triton planar blur vs the oracle (interpreter on the CPU),
+and the routing that decides where it runs."""
+
+import os
+import types
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
+from hipe_tpu.models import pipelines as plib
+from hipe_tpu.ops import blur as xblur
 from hipe_tpu.ops import pallas_blur
 from hipe_tpu.ops import reference as oracle
 from hipe_tpu.utils.images import checker_image, hwc_to_planar, planar_to_hwc
 
-
-def _batch(n=2, h=32, w=128, c=3):
-    return np.stack([checker_image(h, w, c, seed=s) for s in range(n)])
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-@pytest.mark.parametrize("radius", [1, 2])
-def test_pallas_blur_bit_exact(radius):
-    batch = _batch()
-    planes = hwc_to_planar(batch)
-    got = pallas_blur.gaussian_blur_planar_pallas(
-        jnp.asarray(planes), radius, interpret=True
-    )
-    got = planar_to_hwc(np.asarray(got), 3)
-    want = np.stack([oracle.gaussian_blur_int_oracle(b, radius) for b in batch])
+def _planes(n=2, h=17, w=20, seed=0):
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 256, (n, h, w), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("width", [20, 300], ids=["ragged", "two_col_tiles"])
+@pytest.mark.parametrize("h_pad", [True, False], ids=["clamp", "halo"])
+@pytest.mark.parametrize("radius", [1, 2, 3, 4])
+def test_triton_blur_bit_exact(radius, h_pad, width):
+    # 17 rows: a ragged last row tile at every block height; width 20 is a
+    # masked 32-wide tile, 300 spans two 256-wide column tiles.
+    x = _planes(h=17, w=width, seed=radius)
+    got = np.asarray(pallas_blur.gaussian_blur_planar_pallas(
+        jnp.asarray(x), radius, h_pad=h_pad, interpret=True))
+    want = np.asarray(xblur.gaussian_blur_planar(
+        jnp.asarray(x), radius, h_pad=h_pad))
+    assert got.shape == (2, 17 if h_pad else 17 - 2 * radius, width)
     np.testing.assert_array_equal(got, want)
 
 
-def test_pallas_blur_multiplane_blocks():
-    batch = _batch(n=4)
-    planes = hwc_to_planar(batch)  # 12 planes
+@pytest.mark.parametrize("block_h", [4, 8, 16])
+def test_triton_blur_launch_shapes(block_h):
+    batch = np.stack([checker_image(24, 40, 3, seed=s) for s in range(2)])
     got = pallas_blur.gaussian_blur_planar_pallas(
-        jnp.asarray(planes), 1, block_planes=4, interpret=True
-    )
+        jnp.asarray(hwc_to_planar(batch)), 1, block_h=block_h,
+        interpret=True)
     got = planar_to_hwc(np.asarray(got), 3)
     want = np.stack([oracle.gaussian_blur_int_oracle(b) for b in batch])
     np.testing.assert_array_equal(got, want)
 
 
-def test_pallas_blur_halo_mode():
-    img = checker_image(48, 128, 3, seed=5)
+def test_triton_blur_halo_mode_reassembles_slab():
+    img = checker_image(48, 40, 3, seed=5)
     want = oracle.gaussian_blur_int_oracle(img)
     lo, hi = 8, 40
-    slab = img[lo - 1 : hi + 1]
-    planes = hwc_to_planar(slab[None])
+    slab = img[lo - 1: hi + 1]
     got = pallas_blur.gaussian_blur_planar_pallas(
-        jnp.asarray(planes), 1, h_pad=False, interpret=True
-    )
-    got = planar_to_hwc(np.asarray(got), 3)[0]
-    np.testing.assert_array_equal(got, want[lo:hi])
+        jnp.asarray(hwc_to_planar(slab[None])), 1, h_pad=False,
+        interpret=True)
+    np.testing.assert_array_equal(planar_to_hwc(np.asarray(got), 3)[0],
+                                  want[lo:hi])
 
 
-def test_pallas_filter_chain_fused():
-    batch = _batch(n=2)
-    planes = hwc_to_planar(batch)
-    names = ("gaussian3", "sharpen", "edge")
-    got = pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(planes), names, interpret=True
-    )
-    got = planar_to_hwc(np.asarray(got), 3)
-    want = np.stack(
-        [
-            oracle.sobel_edge_oracle(
-                oracle.sharpen3x3_oracle(oracle.gaussian_blur_int_oracle(b))
-            )
-            for b in batch
-        ]
-    )
-    np.testing.assert_array_equal(got, want)
-
-
-def test_vmem_limit_ignored_in_interpret_mode():
-    """vmem_limit_mb is a Mosaic knob; interpret mode must ignore it."""
-    import jax.numpy as jnp
-
-    from hipe_tpu.ops import pallas_blur, reference as oracle
-    from hipe_tpu.utils.images import checker_image
-
-    img = checker_image(32, 48, 3, seed=4)
-    planes = jnp.asarray(img.transpose(2, 0, 1))
-    got = np.asarray(
+def test_triton_blur_rejects_bad_inputs():
+    with pytest.raises(AssertionError):
         pallas_blur.gaussian_blur_planar_pallas(
-            planes, 1, interpret=True, alias=True, vmem_limit_mb=96
-        )
-    )
-    want = oracle.gaussian_blur_int_oracle(img).transpose(2, 0, 1)
-    np.testing.assert_array_equal(got, want)
-    got = np.asarray(
-        pallas_blur.filter_chain_planar_pallas(
-            planes, ("gaussian3", "sharpen"), interpret=True,
-            vmem_limit_mb=96,
-        )
-    )
-    want2 = oracle.sharpen3x3_oracle(
-        oracle.gaussian_blur_int_oracle(img)
-    ).transpose(2, 0, 1)
-    np.testing.assert_array_equal(got, want2)
+            jnp.zeros((1, 8, 8), jnp.int32), 1, interpret=True)
+    with pytest.raises(AssertionError):
+        pallas_blur.gaussian_blur_planar_pallas(
+            jnp.zeros((1, 8, 8), jnp.uint8), 1, block_h=6, interpret=True)
 
 
-def test_pallas_median_and_denoise_fused():
-    # Nonlinear stage: no MXU band form, so the chain routes to the
-    # generic fused VPU kernel — must stay bit-exact, halo mode included.
-    from hipe_tpu.ops import reference as oracle
+def _pallas_call_eqn(fn, *args):
+    def walk(jaxpr):
+        for e in jaxpr.eqns:
+            if e.primitive.name == "pallas_call":
+                return e
+            for v in e.params.values():
+                sub = getattr(v, "jaxpr", None)
+                if sub is not None:
+                    found = walk(sub)
+                    if found is not None:
+                        return found
+        return None
 
-    x = np.stack([checker_image(32, 48, 1, seed=s)[..., 0]
-                  for s in range(4)])
-    want = np.stack([
-        oracle.median3x3_oracle(p[..., None])[..., 0] for p in x])
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(x), ("median",), interpret=True))
-    np.testing.assert_array_equal(got, want)
-    from hipe_tpu.ops import blur as xblur
-
-    want2 = np.asarray(xblur.filter_chain(
-        jnp.asarray(x)[..., None], ("median", "gaussian3"),
-        h_axis=-3, w_axis=-2))[..., 0]
-    got2 = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(x), ("median", "gaussian3"), interpret=True))
-    np.testing.assert_array_equal(got2, want2)
+    return walk(jax.make_jaxpr(fn)(*args).jaxpr)
 
 
-def test_pallas_rank_filters_fused_and_tiled():
-    # erode/dilate are nonlinear (no MXU band form): single stages and the
-    # open/close registry chains route to the generic fused VPU kernel;
-    # oversized planes take the halo-tiled rank branch. All bit-exact.
-    from hipe_tpu.ops import reference as oracle
-    from hipe_tpu.models import pipelines as plib
-
-    x = np.stack([checker_image(32, 48, 1, seed=s)[..., 0]
-                  for s in range(4)])
-    oracles = {
-        "erode": oracle.erode3x3_oracle,
-        "dilate": oracle.dilate3x3_oracle,
-    }
-    for name, ofn in oracles.items():
-        want = np.stack([ofn(p[..., None])[..., 0] for p in x])
-        got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-            jnp.asarray(x), (name,), interpret=True))
-        np.testing.assert_array_equal(got, want, err_msg=f"{name} fused")
-        got_t = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-            jnp.asarray(x), (name,), tile_h=16, interpret=True))
-        np.testing.assert_array_equal(got_t, want, err_msg=f"{name} tiled")
-    for pname, seq in (("open", ("erode", "dilate")),
-                       ("close", ("dilate", "erode"))):
-        pipe = plib.PIPELINES[pname]
-        assert pipe.filters == seq and pipe.radius == 2
-        a, b = (oracles[seq[0]], oracles[seq[1]])
-        want = np.stack(
-            [b(a(p[..., None]))[..., 0] for p in x])
-        got = np.asarray(pipe.apply_planar(jnp.asarray(x), interpret=True))
-        np.testing.assert_array_equal(got, want, err_msg=f"{pname} fused")
+def test_kernel_names_the_triton_route():
+    # Tracing needs no GPU: the kernel must name the Triton backend and
+    # carry Triton compiler params, never a Mosaic (TPU or GPU) route.
+    eqn = _pallas_call_eqn(
+        lambda x: pallas_blur.gaussian_blur_planar_pallas(x, 1),
+        _planes())
+    assert eqn is not None
+    assert eqn.params["backend"] == "triton"
+    assert set(eqn.params["compiler_params"]) == {"triton"}
+    assert eqn.params["name"] == "gaussian3_planar"
 
 
-def test_pallas_chain_int8_bands_bit_exact():
-    # int8 MXU bands (v5e: 2x the bf16 MXU rate) reformulate every W-pass
-    # dot as a centered int8 x int8 -> int32 matmul + integer H pass +
-    # `>> 4r` normalization — bit-identical to the bf16/fp32 formulation
-    # by the exactness contract. Full chain, single stages, halo mode.
-    batch = _batch(n=2)
-    planes = jnp.asarray(hwc_to_planar(batch))
-    for names in (("gaussian3", "sharpen", "edge"), ("gaussian5",),
-                  ("gaussian7",), ("sharpen", "invert"), ("edge",)):
-        want = np.asarray(pallas_blur.filter_chain_planar_pallas(
-            planes, names, interpret=True))
-        got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-            planes, names, interpret=True, int8_bands=True))
-        np.testing.assert_array_equal(got, want, err_msg=str(names))
-    # Halo (valid) mode trims chain_radius rows — same equality.
-    want = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        planes, ("gaussian3", "sharpen"), h_pad=False, interpret=True))
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        planes, ("gaussian3", "sharpen"), h_pad=False, interpret=True,
-        int8_bands=True))
+def test_no_module_targets_a_tpu():
+    offenders = []
+    paths = [os.path.join(ROOT, f) for f in
+             ("bench.py", "chip_smoke.py", "__graft_entry__.py")]
+    for dirpath, _, files in os.walk(os.path.join(ROOT, "hipe_tpu")):
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        for needle in ("pallas.tpu", "pltpu", "vmem_limit", "int8_bands",
+                       "int16_ranks"):
+            if needle in text:
+                offenders.append((os.path.relpath(path, ROOT), needle))
+    assert not offenders, offenders
+
+
+@pytest.mark.parametrize("platform,expected", [
+    ("gpu", True), ("cpu", False), ("tpu", False), ("rocm", False),
+])
+def test_default_use_pallas_by_platform(platform, expected):
+    dev = types.SimpleNamespace(platform=platform)
+    assert plib.default_use_pallas(dev) is expected
+
+
+def test_kernel_routing_by_family():
+    for name, pipe in plib.PIPELINES.items():
+        single_gauss = (len(pipe.filters) == 1
+                        and pipe.filters[0].startswith("gaussian"))
+        assert pipe.has_kernel is single_gauss, name
+        want = (f"pallas-triton:{pipe.filters[0]}_planar" if single_gauss
+                else "xla")
+        assert pipe.kernel_name(True) == want, name
+        assert pipe.kernel_name(False) == "xla", name
+
+
+@pytest.mark.parametrize("name", ["blur3", "blur5", "blur7", "blur9"])
+def test_pipeline_apply_planar_kernel_matches_xla(name):
+    pipe = plib.PIPELINES[name]
+    x = jnp.asarray(_planes(n=3, h=20, w=24, seed=len(name)))
+    got = np.asarray(pipe.apply_planar(x, use_pallas=True, interpret=True))
+    want = np.asarray(pipe.apply_planar(x, use_pallas=False))
     np.testing.assert_array_equal(got, want)
 
 
-def test_pipeline_int8_bands_surface():
-    # Pipeline.apply_planar exposes int8_bands so the stream autotuner can
-    # sweep it as a measured config: bit-identical output, single
-    # gaussians rerouted through the chain kernel, clear errors on the
-    # paths that have no MXU bands.
-    from hipe_tpu.models import pipelines as plib
+def test_runtime_lanes_route_by_device():
+    # On a CPU device every runtime path picks XLA by default.
+    from hipe_tpu.runtime.device_stream import DeviceStreamRunner
+    from hipe_tpu.runtime.engine import _Lane
+    from hipe_tpu.runtime.serve import ServingPipeline
+    from hipe_tpu.profiling.events import DeviceCounters
 
-    batch = _batch(n=2)
-    planes = jnp.asarray(hwc_to_planar(batch))
-    for pname in ("chain", "blur3", "sharpen", "edge"):
-        pipe = plib.PIPELINES[pname]
-        assert pipe.has_band_stages
-        want = np.asarray(pipe.apply_planar(planes, interpret=True))
-        got = np.asarray(pipe.apply_planar(planes, interpret=True,
-                                           int8_bands=True))
-        np.testing.assert_array_equal(got, want, err_msg=pname)
-    assert not plib.PIPELINES["median"].has_band_stages
-    assert not plib.PIPELINES["invert"].has_band_stages
-    # denoise (median + gaussian3) is a MIXED chain: it routes to the VPU
-    # chain kernel (mxu_ok is all-stages), so it exposes the int16 rank
-    # knob, not the int8 band knob.
-    assert not plib.PIPELINES["denoise"].has_band_stages
-    assert plib.PIPELINES["denoise"].has_rank_stages
-    with pytest.raises(ValueError, match="use_pallas"):
-        plib.PIPELINES["chain"].apply_planar(planes, use_pallas=False,
-                                             int8_bands=True)
-    big = jnp.zeros((1, 8, plib.WHOLE_PLANE_PIXEL_LIMIT // 8 + 8), jnp.uint8)
-    with pytest.raises(ValueError, match="tiled"):
-        plib.PIPELINES["chain"].apply_planar(big, int8_bands=True,
-                                             interpret=True)
-
-
-def test_pallas_chain_int8_bands_rejects_wide_taps():
-    # blur9's clamp-folded band stacks edge taps to 163 > int8 range; the
-    # int8 formulation must refuse rather than silently wrap.
-    planes = jnp.asarray(hwc_to_planar(_batch(n=1)))
-    with pytest.raises(ValueError, match="int8"):
-        pallas_blur.filter_chain_planar_pallas(
-            planes, ("gaussian9",), interpret=True, int8_bands=True)
-
-
-def test_pallas_chain_int16_ranks_bit_exact():
-    # int16 min/max networks for the rank-family stages (2 elements/VPU
-    # lane): same order statistics on [0, 255] values in any integer
-    # width, so the fused chain with int16_ranks=True is bit-identical to
-    # the int32 formulation. Pure rank stages, mixed chains, halo mode.
-    batch = _batch(n=2)
-    planes = jnp.asarray(hwc_to_planar(batch))
-    for names in (("median",), ("median5",), ("erode", "dilate"),
-                  ("dilate", "erode"), ("median", "gaussian3"),
-                  ("median", "invert"), ("erode5",), ("dilate5",)):
-        want = np.asarray(pallas_blur.filter_chain_planar_pallas(
-            planes, names, interpret=True))
-        got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-            planes, names, interpret=True, int16_ranks=True))
-        np.testing.assert_array_equal(got, want, err_msg=str(names))
-    # Halo (valid) mode trims chain_radius rows — same equality.
-    want = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        planes, ("median", "erode"), h_pad=False, interpret=True))
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        planes, ("median", "erode"), h_pad=False, interpret=True,
-        int16_ranks=True))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_pipeline_int16_ranks_surface():
-    # Pipeline.apply_planar exposes int16_ranks so the stream autotuner
-    # can sweep it (pallas_i16_* configs): bit-identical output, clear
-    # errors on the paths that have no rank stages / no Pallas kernels.
-    from hipe_tpu.models import pipelines as plib
-
-    batch = _batch(n=2)
-    planes = jnp.asarray(hwc_to_planar(batch))
-    for pname in ("median", "median5", "erode", "dilate", "open", "close",
-                  "denoise"):
-        pipe = plib.PIPELINES[pname]
-        assert pipe.has_rank_stages
-        want = np.asarray(pipe.apply_planar(planes, interpret=True))
-        got = np.asarray(pipe.apply_planar(planes, interpret=True,
-                                           int16_ranks=True))
-        np.testing.assert_array_equal(got, want, err_msg=pname)
-    assert not plib.PIPELINES["chain"].has_rank_stages
-    assert not plib.PIPELINES["invert"].has_rank_stages
-    with pytest.raises(ValueError, match="rank-family"):
-        plib.PIPELINES["blur3"].apply_planar(planes, interpret=True,
-                                             int16_ranks=True)
-    with pytest.raises(ValueError, match="use_pallas"):
-        plib.PIPELINES["median"].apply_planar(planes, use_pallas=False,
-                                              int16_ranks=True)
-    big = jnp.zeros((1, 8, plib.WHOLE_PLANE_PIXEL_LIMIT // 8 + 8), jnp.uint8)
-    with pytest.raises(ValueError, match="tiled"):
-        plib.PIPELINES["median"].apply_planar(big, int16_ranks=True,
-                                              interpret=True)
+    cpu = jax.devices("cpu")[0]
+    img = checker_image(8, 16, 3, seed=1)
+    runner = DeviceStreamRunner("blur3", num_images=2, image=img, device=cpu)
+    assert runner.use_pallas is False and runner.kernel_name == "xla"
+    assert ServingPipeline("blur3", device=cpu).use_pallas is False
+    lane = _Lane("accel", cpu, plib.PIPELINES["blur3"],
+                 DeviceCounters("accel"), path="pallas", profile=False)
+    assert lane.path == "xla"

@@ -1,8 +1,8 @@
 """Radius-0 point stages (invert/solarize/posterize4): PIL-exact, chainable.
 
 Coverage: closed forms vs PIL ImageOps LUTs; chains mixing point and
-stencil stages identical across the XLA, fused Pallas (MXU and VPU), and
-tiled paths; row-split with zero-radius stages skipping the halo
+stencil stages identical across the NHWC, planar and rows layouts;
+row-split with zero-radius stages skipping the halo
 exchange; registry/serving integration.
 """
 
@@ -13,7 +13,6 @@ import jax
 import jax.numpy as jnp
 
 from hipe_tpu.ops import blur as xblur
-from hipe_tpu.ops import pallas_blur
 from hipe_tpu.models import pipelines as plib
 from hipe_tpu.utils.images import checker_image
 
@@ -54,19 +53,19 @@ def test_point_stage_matches_pil(name):
     ("median", "invert"),
 ], ids=lambda n: "+".join(n))
 def test_point_chains_identical_across_paths(names):
-    """XLA chain == fused Pallas chain (MXU or VPU route) == tiled."""
+    """NHWC chain == planar chain == rows chain."""
     x = np.stack([checker_image(32, 48, 1, seed=s)[..., 0]
                   for s in range(4)])
     want = np.asarray(
         xblur.filter_chain(jnp.asarray(x)[..., None], names,
                            h_axis=-3, w_axis=-2)
     )[..., 0]
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(x), names, interpret=True))
+    got = np.asarray(xblur.filter_chain(
+        jnp.asarray(x), names, h_axis=-2, w_axis=-1))
     np.testing.assert_array_equal(got, want)
-    got_tiled = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-        jnp.asarray(x), names, tile_h=16, interpret=True))
-    np.testing.assert_array_equal(got_tiled, want)
+    got_rows = np.asarray(xblur.filter_chain_rows(
+        jnp.asarray(x), 1, names))
+    np.testing.assert_array_equal(got_rows, want)
 
 
 def test_point_chain_halo_mode():
@@ -82,8 +81,8 @@ def test_point_chain_halo_mode():
     )[..., 0][:, 8:-8]
     # Slab covering rows [8-r, 32+r): interior rows are halo-exact.
     slab = jnp.asarray(x[:, 8 - r : 32 + r])
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        slab, names, h_pad=False, interpret=True))
+    got = np.asarray(xblur.filter_chain(
+        slab, names, h_axis=-2, w_axis=-1, h_pad=False))
     np.testing.assert_array_equal(got, want[:, : 32 - 8])
 
 

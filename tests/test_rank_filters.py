@@ -1,7 +1,7 @@
 """Generalized rank filters — PIL RankFilter/MedianFilter(5)/MinFilter(5)/
 MaxFilter(5) bit-exact (borders included: PIL rank filters replicate the
 border, the engine's clamp-to-edge rule), via a pure min/max odd-even
-transposition network on every path."""
+transposition network in every layout."""
 
 import numpy as np
 import pytest
@@ -9,7 +9,6 @@ import pytest
 import jax.numpy as jnp
 
 from hipe_tpu.ops import blur as xblur
-from hipe_tpu.ops import pallas_blur
 from hipe_tpu.ops import reference as oracle
 
 
@@ -83,7 +82,18 @@ def test_custom_rank_registration_and_pil():
         _pil_rank(img7, 7, 10))
 
 
-def test_rank_filters_fused_tiled_and_row_split():
+def _planar(x, names):
+    return np.asarray(xblur.filter_chain(jnp.asarray(x), names, h_axis=-2,
+                                         w_axis=-1))
+
+
+def _rows(x, names):
+    b, h, w = x.shape
+    return np.asarray(xblur.filter_chain_rows(
+        jnp.asarray(x.reshape(b, h, w)), 1, names)).reshape(x.shape)
+
+
+def test_rank_filters_planar_rows_and_row_split():
     from hipe_tpu.parallel import mesh as meshlib
     from hipe_tpu.parallel.row_split import make_row_split_fn
 
@@ -91,12 +101,8 @@ def test_rank_filters_fused_tiled_and_row_split():
                   .astype(np.uint8) for s in range(2)])
     want = np.stack(
         [oracle.rank_oracle(p[..., None], 5, 12)[..., 0] for p in x])
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(x), ("median5",), interpret=True))
-    np.testing.assert_array_equal(got, want)
-    got_t = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-        jnp.asarray(x), ("median5",), tile_h=16, interpret=True))
-    np.testing.assert_array_equal(got_t, want)
+    np.testing.assert_array_equal(_planar(x, ("median5",)), want)
+    np.testing.assert_array_equal(_rows(x, ("median5",)), want)
     # Radius-2 stage through the generic halo machinery, chained.
     mesh = meshlib.make_mesh(4, axis=meshlib.ROW_AXIS)
     batch = np.stack([np.random.default_rng(s).integers(
@@ -107,28 +113,18 @@ def test_rank_filters_fused_tiled_and_row_split():
     np.testing.assert_array_equal(np.asarray(fn(jnp.asarray(batch))), want_c)
 
 
-def test_rank79_fused_tiled_row_split_and_liveness():
-    # Size-7/9 (radius 3/4): the widened gate routes through the same
-    # machinery — fused Pallas (liveness-aware default block), halo-tiled,
-    # and row-split halo exchange — all bit-exact vs the PIL-checked oracle.
+def test_rank79_planar_rows_and_row_split():
+    # Size-7/9 (radius 3/4) through the planar and rows layouts and the
+    # row-split halo exchange — all bit-exact vs the PIL-checked oracle.
     from hipe_tpu.parallel import mesh as meshlib
     from hipe_tpu.parallel.row_split import make_row_split_fn
-
-    assert xblur.chain_live_taps(("median7",)) == 49
-    assert xblur.chain_live_taps(("median9", "gaussian3")) == 81
-    assert xblur.chain_live_taps(("median",)) == 9
-    assert xblur.chain_live_taps(("gaussian9",)) == 3
 
     x = np.stack([np.random.default_rng(s).integers(0, 256, (32, 48))
                   .astype(np.uint8) for s in range(2)])
     want7 = np.stack(
         [oracle.rank_oracle(p[..., None], 7, 24)[..., 0] for p in x])
-    got = np.asarray(pallas_blur.filter_chain_planar_pallas(
-        jnp.asarray(x), ("median7",), interpret=True))
-    np.testing.assert_array_equal(got, want7)
-    got_t = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-        jnp.asarray(x), ("median7",), tile_h=16, interpret=True))
-    np.testing.assert_array_equal(got_t, want7)
+    np.testing.assert_array_equal(_planar(x, ("median7",)), want7)
+    np.testing.assert_array_equal(_rows(x, ("median7",)), want7)
     # Radius-3 stage through the generic halo machinery (4-way split).
     mesh = meshlib.make_mesh(4, axis=meshlib.ROW_AXIS)
     batch = np.stack([np.random.default_rng(s).integers(
@@ -142,64 +138,28 @@ def test_rank79_fused_tiled_row_split_and_liveness():
     np.testing.assert_array_equal(np.asarray(fn9(jnp.asarray(batch))), want_9)
 
 
-def test_tiled_rank_vmem_sizing_and_wide_plane():
-    # Rank stages keep size^2 window views live in the tiled kernel —
-    # wide planes exceeded Mosaic's default 16 MB scoped-VMEM cap on
-    # silicon (median5 @ 1504x1400 OOM'd at 23.3 MB). The tiled dispatch
-    # must raise the cap for rank stages (and only them), shrinking the
-    # tile when even the 110 MB ceiling wouldn't hold the live set.
-    th, mb = pallas_blur._tiled_vmem("median5", 128, 1400)
-    assert th == 128 and mb is not None and 24 <= mb <= 110
-    assert pallas_blur._tiled_vmem("median5", 128, 256) == (128, None)
-    for name in ("gaussian3", "median", "erode", "pil_blur", "sharpen"):
-        assert pallas_blur._tiled_vmem(name, 128, 1400) == (128, None)
-    # The shrink loop halves in 8-row units (preserving _tiled_call's
-    # sublane-aligned halo index maps) and floors at 8.
-    for w in (6000, 12000, 24000):
-        th, mb = pallas_blur._tiled_vmem("median5", 128, w)
-        assert th is not None and th % 8 == 0 and 8 <= th < 128
-        assert mb is not None and mb <= 110
-    # Beyond the width where even an 8-row tile exceeds the 110 MB cap,
-    # the sizing signals "route to XLA" instead of emitting a known-OOM
-    # pallas_call.
-    assert pallas_blur._tiled_vmem("median5", 128, 60000) == (None, None)
-    # Wide-plane tiled rank stays bit-exact through the resized call.
+def test_rank_wide_plane_planar():
+    # A wide plane: XLA needs no tile sizing for the 25 live window views.
     rng = np.random.default_rng(5)
     x = rng.integers(0, 256, (1, 48, 1400), np.uint8)
     want = oracle.rank_oracle(x[0][..., None], 5, 12)[..., 0]
-    got = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-        jnp.asarray(x), ("median5",), tile_h=16, interpret=True))[0]
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_planar(x, ("median5",))[0], want)
 
 
-def test_tiled_rank_extreme_width_xla_fallback():
-    # W=60000: even an 8-row tile's rank live set exceeds the 110 MB
-    # scoped-VMEM ceiling, so the tiled chain routes that stage through
-    # the XLA planar path — bit-identical, no pallas_call emitted.
+def test_rank_extreme_width_planar():
     rng = np.random.default_rng(7)
     x = rng.integers(0, 256, (1, 16, 60000), np.uint8)
     want = oracle.rank_oracle(x[0][..., None], 5, 12)[..., 0]
-    got = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-        jnp.asarray(x), ("median5",), tile_h=16, interpret=True))[0]
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_planar(x, ("median5",))[0], want)
 
 
-def test_tiled_rank_size9_routes_xla():
-    # Size-9 rank stages route to the XLA planar path on the tiled
-    # (oversized-plane) route unconditionally: on silicon the 81-live-view
-    # Mosaic compile stalls >30 min at stream widths under both the sort
-    # network and the counting formulation (see _tiled_vmem). The chain
-    # result stays bit-identical, and size 7 keeps its Pallas tiling.
-    assert pallas_blur._tiled_vmem("median9", 128, 1400) == (None, None)
-    assert pallas_blur._tiled_vmem("median9", 128, 256) == (None, None)
-    th, _mb = pallas_blur._tiled_vmem("median7", 128, 1400)
-    assert th is not None
+def test_rank_size9_planar_and_rows():
+    # Size 9 (81 live views, the bit-serial counting selection).
     rng = np.random.default_rng(11)
     x = rng.integers(0, 256, (1, 32, 640), np.uint8)
     want = oracle.rank_oracle(x[0][..., None], 9, 40)[..., 0]
-    got = np.asarray(pallas_blur.filter_chain_planar_tiled_pallas(
-        jnp.asarray(x), ("median9",), tile_h=16, interpret=True))[0]
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(_planar(x, ("median9",))[0], want)
+    np.testing.assert_array_equal(_rows(x, ("median9",))[0], want)
 
 
 def test_cli_rank_flag():

@@ -1,37 +1,20 @@
 """Bilinear resize: bit-exact vs an independent numpy oracle.
 
 The contract (half-pixel mapping, Q14 weights, per-pass rounding; see
-ops/resize.py docstring) is re-implemented here with per-pixel gathers —
-no band matrices — so the MXU matmul formulation is checked against
-straight-line integer arithmetic.
+ops/resize.py docstring) is re-implemented in ops/reference.py with
+per-pixel gathers — no band matrices — so the banded-matmul formulation is
+checked against straight-line integer arithmetic.
 """
 
 import numpy as np
 import pytest
 
+from hipe_tpu.ops import reference as oracle
 from hipe_tpu.ops import resize as rz
 
 
-def _axis_oracle(x: np.ndarray, n_out: int) -> np.ndarray:
-    """One-axis pass on the LAST axis of int array x, per the contract."""
-    n_in = x.shape[-1]
-    j = np.arange(n_out, dtype=np.float64)
-    src = np.clip((j + 0.5) * (n_in / n_out) - 0.5, 0.0, n_in - 1)
-    lo = np.floor(src).astype(np.int64)
-    hi = np.minimum(lo + 1, n_in - 1)
-    wr = np.rint((src - lo) * (1 << 14)).astype(np.int64)
-    wl = (1 << 14) - wr
-    acc = x[..., lo].astype(np.int64) * wl + x[..., hi].astype(np.int64) * wr
-    return (acc + (1 << 13)) >> 14
-
-
 def _oracle(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
-    t = np.moveaxis(img, -1, -3)  # (..., C, H, W)
-    if t.shape[-1] != ow:
-        t = _axis_oracle(t, ow).astype(np.uint8)
-    if t.shape[-2] != oh:
-        t = np.swapaxes(_axis_oracle(np.swapaxes(t, -1, -2), oh), -1, -2)
-    return np.moveaxis(t.astype(np.uint8), -3, -1)
+    return oracle.resize_bilinear_oracle(img, oh, ow)
 
 
 def _rand(h, w, c=3, seed=0):
@@ -86,3 +69,25 @@ def test_flat_field_invariance():
     img = np.full((13, 9, 3), 173, dtype=np.uint8)
     out = np.asarray(rz.resize_bilinear(img, 50, 4))
     assert (out == 173).all()
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_dots_request_highest_precision(planar):
+    # An fp32 dot may run in TF32 (10-bit mantissa) on a GPU unless the
+    # caller asks for more; the Q14 products reach 2^22, so exactness
+    # needs every resize dot at HIGHEST.
+    import jax
+
+    img = _rand(48, 64)
+    if planar:
+        fn = lambda x: rz.resize_bilinear_planar(x, 17, 23)  # noqa: E731
+        img = np.moveaxis(img, -1, 0).copy()
+    else:
+        fn = lambda x: rz.resize_bilinear(x, 17, 23)  # noqa: E731
+    eqns = jax.make_jaxpr(fn)(img).jaxpr.eqns
+    dots = [e for e in eqns if e.primitive.name == "dot_general"]
+    assert len(dots) == 2
+    for e in dots:
+        prec = e.params["precision"]
+        assert prec is not None
+        assert all(p == jax.lax.Precision.HIGHEST for p in prec), prec

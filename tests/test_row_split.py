@@ -113,19 +113,19 @@ def test_weighted_row_split_8way_uneven(names):
 
 
 def test_weighted_row_split_pallas_local_fn():
-    """Weighted split with a Pipeline clamp-mode local fn (Pallas path)."""
+    """Weighted split with a Pipeline clamp-mode local fn (kernel path)."""
     from hipe_tpu.models import pipelines as plib
     from hipe_tpu.ops import blur as xblur
     from hipe_tpu.parallel.row_split import make_weighted_row_split_fn
 
-    pipe = plib.PIPELINES["chain"]
+    pipe = plib.PIPELINES["blur5"]
     mesh = _mesh(4)
     fn = make_weighted_row_split_fn(
         mesh, pipe.filters, weights=[1, 2, 3, 2],
         local_fn=pipe.nhwc_clamp_fn(use_pallas=True, interpret=True),
         radius=pipe.radius,
     )
-    batch = np.stack([checker_image(64, 128, 3, seed=9)])
+    batch = np.stack([checker_image(64, 40, 3, seed=9)])
     got = np.asarray(fn(jnp.asarray(batch)))
     want = np.asarray(xblur.filter_chain(jnp.asarray(batch), pipe.filters))
     np.testing.assert_array_equal(got, want)

@@ -78,25 +78,20 @@ def test_serving_pipeline_streaming_mixed_resolution():
     assert len(serve._fns) == 2
 
 
-def test_autotune_skips_block_sweep_on_tiled_geometry(tmp_path):
-    """Oversized planes route to tiled kernels (no alias/block knobs):
-    autotune must not sweep fictitious alias/block configs there, and
-    must skip configs that fail to compile (TPU kernels on this CPU
-    backend) instead of crashing — recording each skip with its
-    exception class rather than hiding it."""
-    img = checker_image(2049, 1025, 3, seed=0)
-    r = DeviceStreamRunner("blur3", num_images=1, image=img,
-                           use_pallas=True,
-                           tune_cache_path=str(tmp_path / "tune.json"))
-    from hipe_tpu.models.pipelines import Pipeline
+def test_autotune_kernel_failure_is_an_error(tmp_path):
+    """A kernel config that cannot compile (the Triton kernel outside the
+    interpreter, on this CPU backend) stops the sweep with its error; it
+    is never recorded as a skip with XLA chosen in its place."""
+    import pytest
 
-    assert Pipeline.routes_tiled(*r.shape[:2])
-    timings = r.autotune(passes=1, reps=1)
-    assert not any("alias" in label for label in timings)
-    assert r.tuning["chosen"] == "xla"  # only compilable config here
-    # The Pallas config failed on this CPU backend: reported, not hidden.
-    assert "pallas" in r.tuning["skipped"]
-    assert r.tuning["skipped"]["pallas"]  # exception class name recorded
+    img = checker_image(16, 24, 3, seed=0)
+    r = DeviceStreamRunner("blur3", num_images=1, image=img,
+                           use_pallas=False,
+                           tune_cache_path=str(tmp_path / "tune.json"))
+    r.use_pallas = True  # as on a GPU device
+    with pytest.raises(Exception):
+        r.autotune(passes=1, reps=1)
+    assert r.tuning is None
 
 
 def test_autotune_cache_hit_skips_sweep(tmp_path, capsys, monkeypatch):
@@ -125,7 +120,7 @@ def test_autotune_cache_hit_skips_sweep(tmp_path, capsys, monkeypatch):
     assert r2.tuning["cache_hit"] is True
     assert r2.tuning["chosen"] == chosen
     assert list(second) == [chosen]  # one timing, no sweep
-    assert r2.config == r.config
+    assert r2.path == r.path
 
     third = r2.autotune(passes=1, reps=1, retune=True)
     assert r2.tuning["cache_hit"] is False
@@ -163,60 +158,59 @@ def test_autotune_cache_regression_resweeps(tmp_path):
     assert len(data["entries"]) == 2
 
 
-def test_rank_block_candidates_sized_from_live_set():
-    # Wide rank windows need tiny fused blocks: the grid must be sized
-    # from the live set (views * plane bytes * 1.3 <= 110 MB), largest
-    # viable blocks first — the default 16..64 sweep can't reach them.
-    img = checker_image(256, 256, 3, seed=3)
-    r = DeviceStreamRunner("median9", num_images=8, image=img,
-                           use_pallas=True)
-    px = 256 * 256
-    for live in (25, 49, 81):
-        cands = r.rank_block_candidates(live)
-        assert cands, live
-        ks = [k for k, _ in cands]
-        assert ks == sorted(ks, reverse=True)
-        for k, mb in cands:
-            assert r.n_planes % k == 0
-            assert mb <= 110
-            # The cap must actually hold the live set (x1.3 headroom).
-            assert (live + 6) * px * 4 * k * 1.3 <= mb * 2**20 * 1.01
-    # median9's 81 live views: nothing above k=3 fits at 256x256.
-    assert max(k for k, _ in r.rank_block_candidates(81)) <= 3
+def test_autotune_sweeps_xla_and_kernel_launches(monkeypatch, tmp_path):
+    """With the kernel available, autotune times XLA and the kernel,
+    keeps the faster, and each path is oracle-exact."""
+    from hipe_tpu.models import pipelines as plib
+
+    kernel = plib.pallas_blur.gaussian_blur_planar_pallas
+
+    def interpreted(x, radius=1, **kw):
+        return kernel(x, radius, **{**kw, "interpret": True})
+
+    monkeypatch.setattr(plib.pallas_blur, "gaussian_blur_planar_pallas",
+                        interpreted)
+    img = checker_image(16, 24, 3, seed=5)
+    r = DeviceStreamRunner("blur3", num_images=2, image=img,
+                           use_pallas=True,
+                           tune_cache_path=str(tmp_path / "tune.json"))
+    assert r.kernel_name == "pallas-triton:gaussian3_planar"
+    timings = r.autotune(passes=1, reps=1, cache=False)
+    assert set(timings) == {"xla", "pallas"}
+    assert r.tuning["chosen"] == min(timings, key=timings.get)
+    r.set_path("pallas")
+    assert r.verify_max_abs_err() == 0
+    r.set_path("xla")
+    assert r.verify_max_abs_err() == 0 and r.kernel_name == "xla"
 
 
-def test_autotune_rejects_poisoned_infra_skips(monkeypatch):
-    # A config skipped for an INFRA reason (compile helper 500ing, worker
-    # crash-cycling) invalidates the whole sweep: the winner among the
-    # survivors is not a measurement. Observed on silicon 2026-08-21:
-    # XLA compiled while every pallas candidate hit HTTP 500 — the old
-    # caller-side xla-only check would have persisted a 20x-slow XLA row.
-    import pytest
+def test_runner_default_routing_on_cpu():
+    # The kernels compile for CUDA only: a CPU device defaults to XLA.
+    img = checker_image(8, 16, 3, seed=3)
+    r = DeviceStreamRunner("blur3", num_images=2, image=img)
+    assert r.use_pallas is False
+    assert r.path == "xla"
+    res = r.measure_throughput(passes=1, reps=1)
+    assert set(res) == {"per_pass_s", "img_per_s", "mpix_per_s", "gb_per_s"}
 
-    img = checker_image(32, 128, 3, seed=3)
-    runner = DeviceStreamRunner("blur3", num_images=8, image=img,
-                                use_pallas=False)
-    real_build = runner._build
 
-    def build(path="xla", **kw):
-        if path != "xla":
-            raise RuntimeError(
-                "INTERNAL: http://127.0.0.1:8103/remote_compile: "
-                "HTTP 500: tpu_compile_helper subprocess exit code 1")
-        return real_build(path=path, **kw)
+def test_stream_of_distinct_images_and_sampled_verify():
+    """Slot i holds image i % K; verification samples the first, middle
+    and last image, so a fault past the first image shows."""
+    import jax.numpy as jnp
 
-    monkeypatch.setattr(runner, "_build", build)
-    with pytest.raises(RuntimeError, match="degraded autotune sweep"):
-        runner.autotune(passes=1, reps=1, cache=False,
-                        candidates=[2, 4])
-    # Genuine per-config rejections (VMEM OOM etc.) stay honest skips.
-    def build_oom(path="xla", **kw):
-        if path != "xla":
-            raise RuntimeError("Mosaic: scoped vmem limit exceeded")
-        return real_build(path=path, **kw)
+    imgs = np.stack([checker_image(16, 24, 3, seed=s) for s in range(3)])
+    r = DeviceStreamRunner("blur3", num_images=7, image=imgs,
+                           use_pallas=False)
+    stream = np.asarray(r.stream).reshape(7, 3, 16, 24).transpose(0, 2, 3, 1)
+    for i in range(7):
+        np.testing.assert_array_equal(stream[i], imgs[i % 3])
+    assert r.verify_max_abs_err() == 0
 
-    monkeypatch.setattr(runner, "_build", build_oom)
-    timings = runner.autotune(passes=1, reps=1, cache=False,
-                              candidates=[2, 4])
-    assert "xla" in timings
-    assert all("vmem" in v for v in runner.tuning["skipped"].values())
+    good = r._one_pass
+
+    def last_image_wrong(s):
+        return good(s).at[-1].set(jnp.uint8(0))
+
+    r._one_pass = last_image_wrong
+    assert r.verify_max_abs_err() > 0

@@ -8,7 +8,7 @@ bit-for-bit with the reference composition: libjpeg scaled decode ->
 filter -> (optional 2x average) -> encode.
 
 Beyond-parity extension (the reference decodes full-size only,
-`/root/reference/heterogeneous_blur.c:106-137`).
+`heterogeneous_blur.c:106-137`).
 """
 
 import numpy as np

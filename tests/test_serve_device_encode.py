@@ -4,7 +4,7 @@ encode_on_device fuses filter + color/downsample/fDCT/quantize in one
 jitted program (ops/jpeg_encode.py); with decode_on_device too the whole
 numeric transcode runs on device, coefficients in -> coefficients out.
 Every path must emit bytes identical to the host-codec ServingPipeline
-(reference data path: `/root/reference/split_image_blur.c:106-139,548-553`).
+(reference data path: `split_image_blur.c:106-139,548-553`).
 """
 
 import numpy as np

@@ -1,6 +1,7 @@
 """Input streams and the CLI smoke path."""
 
 import numpy as np
+import pytest
 
 from hipe_tpu.io_.jpeg import encode_bytes
 from hipe_tpu.runtime.stream import (
@@ -9,7 +10,22 @@ from hipe_tpu.runtime.stream import (
     ReplicatedStream,
     batch_sizes,
 )
-from hipe_tpu.utils.images import checker_image
+from hipe_tpu.utils.images import (REFERENCE_256, REFERENCE_320,
+                                   checker_image, seeded_image)
+
+
+@pytest.fixture(scope="module")
+def assets(tmp_path_factory):
+    """Seeded JPEG files at the reference assets' two geometries."""
+    from hipe_tpu.io_.jpeg import encode_file
+
+    d = tmp_path_factory.mktemp("assets")
+    out = {}
+    for key, size in (("256", REFERENCE_256), ("320", REFERENCE_320)):
+        path = str(d / f"image_{size[1]}x{size[0]}.jpg")
+        encode_file(seeded_image(*size, seed=int(key)), path, quality=90)
+        out[key] = path
+    return out
 
 
 def test_batch_sizes_remainder():
@@ -65,7 +81,6 @@ def test_cli_smoke(tmp_path, capsys):
         csv_path = str(tmp_path / "run.csv")
         rc = cli.main([
             "approach1", "both", "0.5", "8", "--num-images", "16",
-            "--image", "/root/reference/image_256x256.jpg",
             "--accel-path", "xla", "--csv", csv_path,
         ])
     finally:
@@ -81,7 +96,7 @@ def test_cli_smoke(tmp_path, capsys):
     assert len(rows) == 1 and rows[0]["images"] == "16"
 
 
-def test_cli_mixed_resolution_smoke(capsys):
+def test_cli_mixed_resolution_smoke(capsys, assets):
     """Mixed-resolution stream through the CLI (BASELINE config 5)."""
     import jax
 
@@ -96,9 +111,7 @@ def test_cli_mixed_resolution_smoke(capsys):
     try:
         rc = cli.main([
             "approach1", "both", "0.5", "8", "--num-images", "24",
-            "--image",
-            "/root/reference/image_256x256.jpg,"
-            "/root/reference/image_320x240.jpg",
+            "--image", f"{assets['256']},{assets['320']}",
             "--accel-path", "xla",
         ])
     finally:
@@ -212,7 +225,6 @@ def test_cli_stream_mode(capsys):
     rc = cli.main([
         "stream", "blur3", "--num-images", "8", "--passes", "2",
         "--no-autotune", "--json",
-        "--image", "/root/reference/image_256x256.jpg",
     ])
     assert rc == 0
     out = capsys.readouterr().out
@@ -243,7 +255,7 @@ def test_cli_serve_mode(capsys):
         rc = cli.main([
             "serve", "blur3", "--num-images", "6", "--batch-size", "4",
             "--quality", "85", *encode_args, "--json",
-            "--image", "/root/reference/image_256x256.jpg", *extra,
+            *extra,
         ])
         assert rc == 0
         out = capsys.readouterr().out
@@ -261,14 +273,13 @@ def test_cli_serve_unknown_pipeline():
     assert cli.main(["serve", "nosuch", "--num-images", "4"]) == 1
 
 
-def test_cli_serve_mixed_resolution_all_modes(capsys):
+def test_cli_serve_mixed_resolution_all_modes(capsys, assets):
     """Mixed --image a,b streams: uniform batches per source, every codec
     placement works (interleaving sizes within one batch crashed the
     host-decode path before the per-batch cycling fix)."""
     from hipe_tpu import cli
 
-    imgs = ("/root/reference/image_256x256.jpg,"
-            "/root/reference/image_320x240.jpg")
+    imgs = f"{assets['256']},{assets['320']}"
     for extra in ([], ["--decode-on-device"],
                   ["--decode-on-device", "--encode-on-device"],
                   ["--no-encode"]):
@@ -287,7 +298,6 @@ def test_cli_serve_thumbnail(capsys):
     rc = cli.main([
         "serve", "blur3", "--num-images", "4", "--batch-size", "2",
         "--thumbnail", "--json",
-        "--image", "/root/reference/image_256x256.jpg",
     ])
     assert rc == 0
     out = capsys.readouterr().out
@@ -301,19 +311,18 @@ def test_cli_serve_decode_scale(capsys):
     rc = cli.main([
         "serve", "blur3", "--num-images", "4", "--batch-size", "2",
         "--decode-scale", "4", "--decode-on-device", "--json",
-        "--image", "/root/reference/image_256x256.jpg",
     ])
     assert rc == 0
     out = capsys.readouterr().out
     assert "Decode scale: 1/4" in out
 
 
-def test_cli_transform_mode(tmp_path, capsys):
+def test_cli_transform_mode(tmp_path, capsys, assets):
     """Lossless transform subcommand: success, clean error paths."""
     from hipe_tpu import cli
 
     out = str(tmp_path / "rot.jpg")
-    rc = cli.main(["transform", "/root/reference/image_320x240.jpg",
+    rc = cli.main(["transform", assets["320"],
                    "rot90", "-o", out])
     assert rc == 0
     text = capsys.readouterr().out
